@@ -20,7 +20,8 @@ prints its wall):
    exists, a single PyTorch library call.
 3. Fused main path: launch counts reset, one steady solve, counts read;
    every hard goal satisfied, balancedness rose, proposals exist, every
-   kernel launched. A profiled solve gives the device-busy share.
+   kernel launched (K1's full and offline modes counted apart). A
+   profiled solve gives the device-busy share.
 4. Fused reference on a small input: 16/512 on the card and on the CPU
    (which the CPU tests hold bit-exact against the JAX package) must agree
    on the violated goals, balancedness, assignment and proposals.
@@ -29,8 +30,9 @@ prints its wall):
    kernels' inputs (among them a deficit-sized round at m = 2,048 over
    2,048 move and 2,048 leadership rows), then the main path: launch
    counts reset, one steady solve, counts read, every kernel launched.
-   Every hard goal satisfied and the violated sets, balancedness and
-   proposal count equal to the JAX package's CPU outcome carried in
+   Every hard goal satisfied and the violated sets, balancedness,
+   proposal count and violation fingerprint equal to the JAX package's
+   CPU outcome carried in
    ``cruise_control_tpu_torch/testing/reference_outcomes.json``; whether
    the assignment and leader digests and the dispatch statistics equal
    the reference's, and the first goal whose moves differ, are printed.
@@ -43,20 +45,27 @@ prints its wall):
    of K1's offline mode is recorded for phase 8.
 7. The same fixture with the default config (wall-clock adaptive
    dispatch): a warm-up solve whose TopicReplicaDistributionGoal pass runs
-   under the profiler (the device-busy share of that pass), then a steady
-   solve: wall, rounds, dispatches, launches per kernel. Every hard goal
-   satisfied and the violated sets and balancedness equal to the healthy
-   reference; the proposal count and the digest comparison are printed.
+   under the profiler (the device-busy share of that pass, and K4's and
+   K1's shares of its device time), then a steady solve: wall, rounds,
+   dispatches, launches per kernel. Every hard goal satisfied and the
+   violated sets, balancedness and violation fingerprint equal to the
+   healthy reference; the proposal count and the digest comparison are
+   printed.
 8. The kernels at the bounded path's shapes, from phase 5's recorded
-   inputs: K3 at its cap, K4 at m = 2,048, K1 and K2 at 1k/100k (K1's
-   offline mode on phase 6's recorded input), each against its twin as
-   in phase 2, and timed.
-9. K1 (full and offline) and K2 at 7,000 brokers / 1M partitions / 700
-   topics with the last 50 brokers DEAD: K1 bitwise against its twin on
-   a CPU copy, K2 exact; timed. K1's offline check fails on an input
-   without offline replicas (an all-zero twin output).
-10. One JSON line describing each kernel (at the bounded path's shapes,
-    with the other shapes under ``other_shapes``), then the device line.
+   inputs: K3 at its cap, K4 at m = 2,048 and on an adversarial batch
+   (every row leaving broker 0 within topic 0, every 4th row unselected
+   and naming broker B-1), K1 and K2 at 1k/100k (K1's offline mode on
+   phase 6's recorded input), each against its twin as in phase 2, and
+   timed.
+9. K1 (full and offline), K2 and K4 at 7,000 brokers / 1M partitions /
+   700 topics with the last 50 brokers DEAD: K1 and K4 bitwise against
+   their twins on a CPU copy (K4 on 2,048 replicas of the DEAD brokers
+   moved to seeded live brokers, every 8th row unselected), K2 exact;
+   timed. K1's offline check fails on an input without offline replicas
+   (an all-zero twin output).
+10. One JSON line describing each kernel, K1's two modes apart (at the
+    bounded path's shapes, with the other shapes under
+    ``other_shapes``), then the device line.
 """
 
 from __future__ import annotations
@@ -169,11 +178,16 @@ def profile_solve(opt, state, meta, goals, steady_s: float) -> None:
 
 
 def to_cpu(obj):
-    """A tensor, or a dataclass of tensors, copied to the host."""
+    """A tensor, or a dataclass or namespace of tensors, copied to the
+    host."""
     import dataclasses
+    import types
     if dataclasses.is_dataclass(obj):
         return type(obj)(**{f.name: to_cpu(getattr(obj, f.name))
                             for f in dataclasses.fields(obj)})
+    if isinstance(obj, types.SimpleNamespace):
+        return types.SimpleNamespace(**{k: to_cpu(v)
+                                        for k, v in vars(obj).items()})
     return obj.cpu() if obj is not None else None
 
 
@@ -230,12 +244,13 @@ def measure(fn, plain_fn, kernel_names, nbytes, ops, library_fn=None,
 
 
 K1_KERNELS = ["count_kernel", "column_scan_kernel", "base_scan_kernel",
-              "place_kernel", "sum_kernel"]
+              "place_kernel", "bucket_fold_kernel"]
 K1_OFFLINE_KERNELS = ["offline_count_kernel", "to_float_kernel"]
 K2_KERNELS = ["keys_kernel", "tile_topk_kernel", "mark_kernel", "best_kernel",
               "assemble_kernel"]
 K3_KERNELS = ["reduce_rows_kernel", "topk_gather_kernel", "dedupe_kernel",
               "ranks_kernel", "scan_kernel"]
+K4_KERNELS = ["carry_copy_kernel", "event_fold_kernel"]
 
 
 def check_k1(agg_mod, state, num_topics, label: str) -> float:
@@ -291,10 +306,8 @@ def k1_cost(state, num_topics):
     return nbytes, n_exist * 7
 
 
-def k1_line(agg_mod, state, num_topics, card_err, label: str,
-            offline_state=None) -> dict:
-    """K1's timings at one shape; the offline mode's too when given a
-    state with offline replicas (``offline_state``)."""
+def k1_line(agg_mod, state, num_topics, card_err, label: str) -> dict:
+    """K1's full-mode timings at one shape."""
     import torch
     from cruise_control_tpu_torch.model.tensors import broker_segments
     dev = state.device
@@ -307,19 +320,23 @@ def k1_line(agg_mod, state, num_topics, card_err, label: str,
         return torch.zeros(b + 1, 8, device=dev).index_add_(0, seg, stacked)
 
     nbytes, ops = k1_cost(state, num_topics)
-    line = dict(shape=label, max_abs_err=0.0, card_twin_max_abs_err=card_err,
+    return dict(shape=label, max_abs_err=0.0, card_twin_max_abs_err=card_err,
                 **measure(lambda: agg_mod.compute_agg(state, num_topics),
                           lambda: agg_mod.compute_agg_plain(state,
                                                             num_topics),
                           K1_KERNELS, nbytes, ops, library))
-    if offline_state is not None:
-        off = measure(lambda: agg_mod.offline_per_broker(offline_state),
-                      lambda: agg_mod.offline_per_broker_plain(offline_state),
-                      K1_OFFLINE_KERNELS, p * s * 4 + p + b * 6, p * s)
-        line.update({f"offline_{k}": v for k, v in off.items()
-                     if k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                              "bound_by")})
-    return line
+
+
+def k1_offline_line(agg_mod, state, label: str) -> dict:
+    """K1's offline-mode timings on a state with offline replicas. No
+    single PyTorch call computes it (the offline predicate comes first),
+    so it has no library yardstick."""
+    p, s = state.assignment.shape
+    b = state.num_brokers
+    return dict(shape=label, max_abs_err=0.0,
+                **measure(lambda: agg_mod.offline_per_broker(state),
+                          lambda: agg_mod.offline_per_broker_plain(state),
+                          K1_OFFLINE_KERNELS, p * s * 4 + p + b * 6, p * s))
 
 
 def check_k2(candidates_mod, args, label: str) -> dict:
@@ -408,7 +425,7 @@ def check_k4(agg_mod, call, label: str) -> dict:
                                                               **kwargs),
                           lambda: agg_mod.apply_deltas_to_agg_plain(
                               *args, **kwargs),
-                          ["apply_deltas_kernel"], nbytes, 2 * m0 * 6,
+                          K4_KERNELS, nbytes, 2 * m0 * 6,
                           lambda: torch.zeros(bb, 6, device=dev)
                           .index_add_(0, stacked_idx, stacked_val)))
 
@@ -425,10 +442,14 @@ def outcome_check(name: str, got: dict, want: dict, fields, result) -> None:
         if got[key] != want[key]:
             fail(f"{name}: {key} {got[key]!r} differs from the reference's "
                  f"{want[key]!r}")
-    stats_got = {k: v for k, v in got["dispatch_stats"].items()
-                 if k != "violation_fingerprint"}
-    stats_want = {k: v for k, v in want["dispatch_stats"].items()
-                  if k != "violation_fingerprint"}
+    # The fingerprint hashes the entry violations, which no dispatch
+    # boundary moves, so every run is held to it.
+    fp_got = got["dispatch_stats"].get("violation_fingerprint")
+    fp_want = want["dispatch_stats"]["violation_fingerprint"]
+    if fp_got != fp_want:
+        fail(f"{name}: violation_fingerprint {fp_got!r} differs from the "
+             f"reference's {fp_want!r}")
+    stats_got, stats_want = got["dispatch_stats"], want["dispatch_stats"]
     print(f"{name}: matches the reference on {', '.join(fields)}; "
           f"assignment digest equal: "
           f"{got['assignment_sha256'] == want['assignment_sha256']}; "
@@ -559,7 +580,8 @@ def main() -> int:
         from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
         from cruise_control_tpu_torch.model.tensors import set_broker_state
         from cruise_control_tpu_torch.testing import (
-            OUTCOME_FIELDS, build_fixture, load_reference_outcomes, outcome,
+            OUTCOME_FIELDS, build_fixture, k4_adversarial_batch,
+            k4_drain_batch, load_reference_outcomes, outcome,
         )
     except ImportError as exc:
         print(f"the port package is missing beside chip_smoke.py: {exc}",
@@ -642,10 +664,11 @@ def main() -> int:
             fail("balancedness did not rise")
         if not result.proposals:
             fail("no proposals")
-        for name in lines_100:
-            lines_100[name]["launches"] = launches_100.get(name, 0)
-            if lines_100[name]["launches"] <= 0:
+        for name in Recorder.KEYS:
+            if launches_100.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched on the fused path")
+        for name in lines_100:
+            lines_100[name]["launches"] = launches_100[name]
         profile_solve(opt, state, meta, goals_by_priority(cfg), steady_100)
         same_runs = torch.equal(warm_final.assignment, final.assignment) \
             and torch.equal(warm_final.leader_slot, final.leader_slot)
@@ -728,7 +751,7 @@ def main() -> int:
                           f"bounded steady solve 1k/100k ({card})")
         launches_1k = dict(kernels.LAUNCHES)
         print(f"launches on the bounded steady solve: {launches_1k}")
-        for name in Recorder.KEYS[:1] + Recorder.KEYS[2:]:
+        for name in Recorder.KEYS:
             if launches_1k.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched on the bounded path")
         outcome_check("1k/100k pinned", got_b, healthy, pinned_fields, res_b)
@@ -749,7 +772,7 @@ def main() -> int:
             rec_d.restore()
         launches_drain = dict(kernels.LAUNCHES)
         print(f"launches on the drain-50 solve: {launches_drain}")
-        for name in Recorder.KEYS[:1] + Recorder.KEYS[2:]:
+        for name in Recorder.KEYS:
             if launches_drain.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched on the drain-50 path")
         outcome_check("1k/100k drain-50 pinned", got_d, drain, pinned_fields,
@@ -782,6 +805,10 @@ def main() -> int:
             busy.update(wall=wall, rounds=out[1]["rounds"],
                         busy=sum(_dev_us(e, True) for e in avgs) / 1e6,
                         ops=sum(e.count for e in avgs))
+            for kname, knames in (("k4", K4_KERNELS), ("k1", K1_KERNELS)):
+                busy[f"{kname}_s"] = sum(
+                    _dev_us(e, True) for e in avgs
+                    if any(n in e.key for n in knames)) / 1e6
             top = sorted(avgs, key=lambda e: _dev_us(e, True),
                          reverse=True)[:8]
             busy["top"] = [(e.key[:90], e.count, _dev_us(e, True) / 1e3)
@@ -803,6 +830,10 @@ def main() -> int:
               f"{busy['wall']:.3f} s, {busy['rounds']} rounds, device busy "
               f"{busy['busy']:.3f} s = {busy['busy'] / busy['wall']:.1%} of "
               f"its wall, {busy['ops']} device ops (profiler on)")
+        print(f"profile: K4 apply_deltas {busy['k4_s']:.3f} s = "
+              f"{busy['k4_s'] / busy['busy']:.1%} and K1 full mode "
+              f"{busy['k1_s']:.3f} s = {busy['k1_s'] / busy['busy']:.1%} of "
+              f"that pass's device time")
         for key, count, dev_ms in busy.pop("top"):
             print(f"  device {dev_ms:9.2f} ms  calls {count:6d}  {key}")
         kernels.LAUNCHES.clear()
@@ -829,10 +860,16 @@ def main() -> int:
         err = check_k1(agg_mod, k1_state, k1_topics, shapes_1k)
         check_k1_offline(agg_mod, drain_offline_state,
                          f"{shapes_1k} drain-50 entry")
+        adv_agg = rec.picked["apply_deltas"][0][0]
+        adv_line = check_k4(
+            agg_mod, ((adv_agg, *k4_adversarial_batch(
+                adv_agg.broker_load.shape[0], adv_agg.topic_counts.shape[0],
+                dev, seed=3)), {}), f"{shapes_1k} adversarial")
         lines = {
             "segment_reduce": k1_line(agg_mod, k1_state, k1_topics, err,
-                                      shapes_1k,
-                                      offline_state=drain_offline_state),
+                                      shapes_1k),
+            "segment_reduce_offline": k1_offline_line(
+                agg_mod, drain_offline_state, f"{shapes_1k} drain-50 entry"),
             "select_sources": check_k2(
                 cand_mod, rec.picked["select_sources"][0],
                 f"{shapes_1k} deficit-sized"),
@@ -843,9 +880,9 @@ def main() -> int:
                                      f"{shapes_1k} cap")}
         del rec
 
-    # -- 9. K1 and K2 at 7k/1M ----------------------------------------------------
+    # -- 9. K1, K2 and K4 at 7k/1M -----------------------------------------------
     shapes_7k = "7k/1M"
-    with Phase("K1 and K2 at 7k/1M"):
+    with Phase("K1, K2 and K4 at 7k/1M"):
         big, big_meta = random_cluster(**BIG, dist=Dist.EXPONENTIAL,
                                        device=dev)
         # The last 50 brokers DEAD, so K1's offline mode has real input.
@@ -855,9 +892,16 @@ def main() -> int:
         torch.cuda.synchronize()
         err = check_k1(agg_mod, big, big_meta.num_topics, shapes_7k)
         check_k1_offline(agg_mod, big, f"{shapes_7k}, 50 brokers DEAD")
-        lines_7k = {"segment_reduce": k1_line(agg_mod, big,
-                                              big_meta.num_topics, err,
-                                              shapes_7k, offline_state=big)}
+        lines_7k = {
+            "segment_reduce": k1_line(agg_mod, big, big_meta.num_topics, err,
+                                      shapes_7k),
+            "segment_reduce_offline": k1_offline_line(
+                agg_mod, big, f"{shapes_7k}, 50 brokers DEAD")}
+        big_agg = agg_mod.compute_agg(big, big_meta.num_topics)
+        lines_7k["apply_deltas"] = check_k4(
+            agg_mod, ((big_agg, *k4_drain_batch(big, seed=5)), {}),
+            f"{shapes_7k} drain, 50 brokers DEAD")
+        del big_agg
         goal = ALL_GOALS["DiskUsageDistributionGoal"]()
         derived = compute_derived(big)
         aux = goal_aux(goal, big, derived, BalancingConstraint(),
@@ -874,6 +918,9 @@ def main() -> int:
     replaces = {
         "segment_reduce": ("cruise_control_tpu_torch/csrc/segment_reduce.cu",
                            "cruise_control_tpu/analyzer/agg.py:70"),
+        "segment_reduce_offline": (
+            "cruise_control_tpu_torch/csrc/segment_reduce.cu",
+            "cruise_control_tpu/analyzer/chain.py:237"),
         "select_sources": ("cruise_control_tpu_torch/csrc/select_sources.cu",
                            "cruise_control_tpu/analyzer/candidates.py:181"),
         "select_batch": ("cruise_control_tpu_torch/csrc/select_batch.cu",
@@ -889,7 +936,9 @@ def main() -> int:
                     launches_default_config_1k=launches_default.get(name, 0),
                     launches_drain50_1k=launches_drain.get(name, 0),
                     **lines[name])
-        line["other_shapes"] = [lines_100[name]] + (
+        line["other_shapes"] = (
+            [lines_100[name]] if name in lines_100 else []) + (
+            [adv_line] if name == "apply_deltas" else []) + (
             [lines_7k[name]] if name in lines_7k else [])
         kernel_lines.append(line)
     print(json.dumps({"kernels": kernel_lines, "card": card,

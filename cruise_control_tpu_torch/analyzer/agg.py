@@ -36,9 +36,14 @@ from ..model.tensors import (
 # Full-recompute cadence inside a goal's loop (bounds f32 drift; counts are
 # exact regardless).
 REFRESH_EVERY = 64
-# K4 stages the batch in shared memory, 44 bytes a row of the 227 KB a
-# block may use (csrc/apply_deltas.cu).
-APPLY_DELTAS_MAX_M = 5280
+# K1's full mode keeps a per-broker histogram of its tile in one block's
+# shared memory (csrc/segment_reduce.cu).
+SEGMENT_REDUCE_MAX_BROKERS = 16384
+# K4 sorts the batch's 2m events in one block (1,024 threads x 4 radix
+# sort items) and stages their deltas in 96 KB of shared memory
+# (csrc/apply_deltas.cu): m <= 2048, the bounded path's cap.
+APPLY_DELTAS_MAX_M = 2048
+APPLY_DELTAS_MAX_BROKERS = 2 ** 19  # the broker field of its 32-bit keys
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,6 +101,8 @@ def compute_agg(state: ClusterTensors, num_topics: int) -> AggCarry:
      _bm) = _kernel_inputs(state)
     p, s = assignment.shape
     b = state.num_brokers
+    if b > SEGMENT_REDUCE_MAX_BROKERS:
+        raise kernels.limit_error("segment_reduce", f"B={b}")
     dev = state.device
     out = AggCarry(
         broker_load=torch.empty((b, 4), dtype=torch.float32, device=dev),
@@ -140,7 +147,7 @@ def offline_per_broker(state: ClusterTensors) -> torch.Tensor:
         bmask.data_ptr(), p, s, b, hist.data_ptr(), out.data_ptr(),
         kernels.stream_ptr(state.device))
     kernels.check(code, "segment_reduce offline")
-    kernels.LAUNCHES["segment_reduce"] += 1
+    kernels.LAUNCHES["segment_reduce_offline"] += 1
     return out
 
 
@@ -198,8 +205,8 @@ def apply_deltas_to_agg(agg: AggCarry, sub, sel: torch.Tensor,
     b = agg.broker_load.shape[0]
     t = agg.topic_counts.shape[0]
     m = sel.shape[0]
-    if m > APPLY_DELTAS_MAX_M:
-        raise kernels.limit_error("apply_deltas", f"m={m}")
+    if m > APPLY_DELTAS_MAX_M or b >= APPLY_DELTAS_MAX_BROKERS:
+        raise kernels.limit_error("apply_deltas", f"m={m}, B={b}")
     req = kernels.requirer("apply_deltas")
     i32, f32 = torch.int32, torch.float32
     ins = (req(agg.broker_load, dev, f32, (b, 4), "broker_load"),

@@ -12,7 +12,7 @@ import torch
 
 from ..common.resources import Resource
 from ..model.tensors import ClusterTensors, alive_mask, new_broker_mask
-from ..utils.numerics import xla_sum
+from ..utils.numerics import fma_f32, xla_sum
 from .agg import compute_agg
 from .constraint import BalancingConstraint
 
@@ -87,13 +87,43 @@ def resource_limits(state: ClusterTensors, derived: DerivedState,
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(lower[B], upper[B], capacity_limit[B]) absolute load limits per
     broker for one resource."""
+    lo_f, up_f, cap = band_factors(state, derived, constraint, resource,
+                                   for_detector)
+    cap_limit = constraint.capacity_threshold[int(resource)] * cap
+    return lo_f * cap, up_f * cap, cap_limit
+
+
+def band_factors(state: ClusterTensors, derived: DerivedState,
+                 constraint: BalancingConstraint, resource: Resource,
+                 for_detector: bool = False,
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(avg·lower multiplier, avg·upper multiplier, capacity[B]): the
+    band limits are factor × capacity."""
     r = int(resource)
     lo_mult, up_mult = constraint.balance_band(resource, for_detector)
-    cap = state.capacity[:, r]
-    lower = derived.avg_util[r] * lo_mult * cap
-    upper = derived.avg_util[r] * up_mult * cap
-    cap_limit = constraint.capacity_threshold[r] * cap
-    return lower, upper, cap_limit
+    return (derived.avg_util[r] * lo_mult, derived.avg_util[r] * up_mult,
+            state.capacity[:, r])
+
+
+def band_violation(state: ClusterTensors, derived: DerivedState,
+                   constraint: BalancingConstraint, resource: Resource,
+                   value: torch.Tensor) -> torch.Tensor:
+    """[B] distance of ``value`` outside its resource balance band,
+    ``max(value - upper, 0) + max(lower - value, 0)``, with each
+    difference rounded once as the reference's fused loop does
+    (``fma_f32``)."""
+    lo_f, up_f, cap = band_factors(state, derived, constraint, resource)
+    return torch.clamp(fma_f32(-up_f, cap, value), min=0.0) \
+        + torch.clamp(fma_f32(lo_f, cap, -value), min=0.0)
+
+
+def over_capacity(state: ClusterTensors, constraint: BalancingConstraint,
+                  resource: Resource, value: torch.Tensor) -> torch.Tensor:
+    """[B] ``max(value - threshold · capacity, 0)``, the difference
+    rounded once as the reference's fused loop does (``fma_f32``)."""
+    r = int(resource)
+    return torch.clamp(fma_f32(-constraint.capacity_threshold[r],
+                               state.capacity[:, r], value), min=0.0)
 
 
 def count_limits(avg: torch.Tensor, threshold: float,

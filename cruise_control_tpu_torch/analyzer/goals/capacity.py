@@ -13,6 +13,7 @@ import torch
 from ...common.resources import Resource
 from ...model.tensors import replica_load_column, replica_load_total
 from ..candidates import CandidateDeltas
+from ..derived import over_capacity
 from .base import Goal, fzero, neg_inf, pair_improvement
 
 
@@ -28,9 +29,10 @@ class ResourceCapacityGoal(Goal):
         return constraint.capacity_threshold[r] * state.capacity[:, r]
 
     def broker_violations(self, state, derived, constraint, aux):
-        limit = self._limit(state, constraint)
         load = derived.broker_load[:, int(self.resource)]
-        return torch.where(derived.alive, torch.clamp(load - limit, min=0.0),
+        return torch.where(derived.alive,
+                           over_capacity(state, constraint, self.resource,
+                                         load),
                            fzero(load))
 
     def acceptance(self, state, derived, constraint, aux,

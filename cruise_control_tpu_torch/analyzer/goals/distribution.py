@@ -23,7 +23,9 @@ from ...model.tensors import (
 from ...utils.numerics import xla_sum
 from ..agg import compute_agg
 from ..candidates import CandidateDeltas
-from ..derived import count_limits, resource_limits
+from ..derived import (
+    band_violation, count_limits, over_capacity, resource_limits,
+)
 from ..fill import (
     best_fit_dests, deficit_fill_dests, exclusive_rank, rank_within_group,
 )
@@ -74,9 +76,8 @@ class ResourceDistributionGoal(Goal):
         return derived.avg_util[r] <= constraint.low_utilization_threshold[r]
 
     def broker_violations(self, state, derived, constraint, aux):
-        r = int(self.resource)
-        lower, upper, _cap = self._limits(state, derived, constraint)
-        viol = _band_viol(derived.broker_load[:, r], lower, upper)
+        viol = band_violation(state, derived, constraint, self.resource,
+                              derived.broker_load[:, int(self.resource)])
         zero = fzero(viol)
         viol = torch.where(derived.alive & derived.allowed_replica_move,
                            viol, zero)
@@ -392,10 +393,10 @@ class PotentialNwOutGoal(Goal):
         return constraint.capacity_threshold[r] * state.capacity[:, r]
 
     def broker_violations(self, state, derived, constraint, aux):
-        limit = self._limit(state, constraint)
         return torch.where(derived.alive,
-                           torch.clamp(derived.pot_nw_out - limit, min=0.0),
-                           fzero(limit))
+                           over_capacity(state, constraint, Resource.NW_OUT,
+                                         derived.pot_nw_out),
+                           fzero(derived.pot_nw_out))
 
     def _pot_delta(self, state, deltas):
         nw = state.leader_load[deltas.partition.long(), int(Resource.NW_OUT)]

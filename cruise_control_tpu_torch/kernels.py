@@ -9,7 +9,8 @@ given, allocates nothing, never synchronises, and returns
 
 ``LAUNCHES`` counts, per kernel name, the wrapper calls that launched the
 kernel (never the plain-PyTorch twin); a run resets it to show that its
-path went through the kernels.
+path went through the kernels. K1's two modes count apart:
+``segment_reduce`` (full) and ``segment_reduce_offline``.
 """
 
 from __future__ import annotations
@@ -138,11 +139,13 @@ def stream_ptr(device) -> int:
 
 # What each kernel takes beyond matching shapes (csrc/*.cu).
 LIMITS = {
-    "segment_reduce": "no size limit but device memory (P*S < 2**31 slots)",
+    "segment_reduce": "P*S < 2**31 slots and, in full mode, B <= 16384 "
+                      "brokers (two [B] histograms in shared memory)",
     "select_sources": "half <= 1024 global rows and B <= 16384 brokers",
     "select_batch": "<= 4096 reduced rows (move + leadership) and "
                     "1 <= m <= 2048",
-    "apply_deltas": "m <= 5280 rows (44*m bytes of shared memory)",
+    "apply_deltas": "m <= 2048 rows (2m events in one block's radix sort) "
+                    "and B < 2**19 brokers",
 }
 
 

@@ -16,6 +16,10 @@ Reproducing the association makes every f32 sum of the port carry the
 reference's bits, so decisions made on those sums (bands, averages,
 pre-deltas) agree exactly instead of within an ulp. Integer sums are
 exact in any order and use ``torch.sum`` directly.
+
+XLA:CPU also contracts a multiply feeding an add in one fused loop into a
+fused multiply-add (``fma_f32``), which rounds once where PyTorch's
+elementwise kernels round twice.
 """
 
 from __future__ import annotations
@@ -75,6 +79,30 @@ def xla_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
     offsets = torch.cat([incl.new_zeros((1,) + rest), incl[:-1]])
     out = (inner + offsets[:, None]).reshape((nb * _CUMSUM_BLOCK,) + rest)[:n]
     return torch.movedim(out, 0, dim)
+
+
+def fma_f32(a, b, c) -> torch.Tensor:
+    """``a * b + c`` of f32 operands rounded once to f32: the fused
+    multiply-add into which XLA:CPU's LLVM backend contracts a multiply
+    and an add of one fused loop (the balance-band and capacity-limit
+    arithmetic ``load - threshold * capacity`` of the reference's goals).
+
+    The product of two f32 values is exact in f64; the f64 sum is then
+    rounded to odd (its error, from TwoSum, sets the last bit) so that the
+    final rounding to f32 equals one rounding of the exact value. Plain
+    f64 arithmetic, so the CPU and the card give the same bits, and no
+    reliance on what a compiler contracts."""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float32) for x in (a, b, c))
+    p = a.double() * b.double()
+    c64 = c.double()
+    s = p + c64
+    cb = s - p
+    err = (p - (s - cb)) + (c64 - cb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
 
 
 def total_order_key(x: torch.Tensor) -> torch.Tensor:

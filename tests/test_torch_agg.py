@@ -6,6 +6,7 @@ slots, pad rows and offline replicas all reach the segment sums. The twin
 must equal the reference exactly: its sums run in the reference's order.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -26,6 +27,7 @@ from cruise_control_tpu_torch.analyzer import derived as tderived
 from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint as TBC
 from cruise_control_tpu_torch.model import tensors as tt
 from cruise_control_tpu_torch.model.fixtures import random_cluster as t_random_cluster
+from cruise_control_tpu_torch.utils.numerics import fma_f32
 from tests.torch_support import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE = dict(num_brokers=14, num_topics=6, num_partitions=300, rf=3,
@@ -121,6 +123,128 @@ def test_apply_deltas_to_agg_matches_with_dropped_rows():
     _assert_agg_equal(tagg.compute_agg(ts, topics), none)
 
 
+# Batches that stress K4's event order (csrc/apply_deltas.cu) at the
+# bounded path's cap, m = 2,048: one source broker for every row, one
+# (topic, broker) cell named by every row, no row selected, leadership-only
+# rows, rows whose source is their destination. Load deltas span seven
+# decades so that the order of the adds shows in the bits.
+ADVERSARIAL = ("one_source", "one_cell", "none_selected", "leadership_only",
+               "src_is_dst")
+BATCH_KEYS = ("src_broker", "dst_broker", "load_delta", "replica_delta",
+              "leader_delta", "topic")
+
+
+def _adversarial_batch(case, num_brokers, num_topics, m=2048, seed=9):
+    rng = np.random.default_rng(seed)
+    scale = 10.0 ** rng.integers(-3, 4, (m, 1))
+    d = dict(
+        src_broker=rng.integers(0, num_brokers, m).astype(np.int32),
+        dst_broker=rng.integers(0, num_brokers, m).astype(np.int32),
+        load_delta=(rng.random((m, 4)) * scale).astype(np.float32),
+        replica_delta=np.ones(m, np.int32),
+        leader_delta=rng.integers(0, 2, m).astype(np.int32),
+        topic=rng.integers(0, num_topics, m).astype(np.int32),
+        sel=rng.random(m) < 0.75,
+        pot=(rng.random(m) * scale[:, 0]).astype(np.float32),
+        lbi=(rng.random(m) * scale[:, 0]).astype(np.float32))
+    if case == "one_source":
+        d["src_broker"][:] = 3
+    elif case == "one_cell":
+        d["topic"][:] = 1
+        d["src_broker"][::2] = 4
+        d["dst_broker"][1::2] = 4
+    elif case == "none_selected":
+        d["sel"][:] = False
+    elif case == "leadership_only":
+        d["replica_delta"][:] = 0
+        d["leader_delta"][:] = 1
+        d["pot"][:] = 0.0
+    else:
+        d["dst_broker"] = d["src_broker"].copy()
+    return d
+
+
+def _k4_event_order(agg, d):
+    """A model of K4's float outputs: every selected row gives the events
+    (src, 0, row) and (dst, 1, row); a stable sort by (broker, phase,
+    row), then each broker's run folded serially from its input value.
+    Returns [B, 6] f32 (four load columns, pot, lbi)."""
+    m = len(d["sel"])
+    rows = torch.nonzero(torch.from_numpy(d["sel"]), as_tuple=True)[0]
+    broker = torch.cat([torch.from_numpy(d["src_broker"])[rows],
+                        torch.from_numpy(d["dst_broker"])[rows]]).long()
+    phase = torch.cat([torch.zeros_like(rows), torch.ones_like(rows)])
+    row = torch.cat([rows, rows])
+    order = torch.sort(broker * 2 * m + phase * m + row, stable=True)[1]
+    vals = torch.cat([torch.from_numpy(d["load_delta"]),
+                      torch.from_numpy(d["pot"])[:, None],
+                      torch.from_numpy(d["lbi"])[:, None]], dim=1)
+    out = torch.cat([agg.broker_load, agg.pot_nw_out[:, None],
+                     agg.lbi[:, None]], dim=1).clone()
+    for e in order.tolist():
+        b, v = int(broker[e]), vals[int(row[e])]
+        out[b] = out[b] + (v if int(phase[e]) else -v)
+    return out
+
+
+@pytest.mark.parametrize("case", ADVERSARIAL)
+def test_apply_deltas_to_agg_matches_on_adversarial_batches(case):
+    js, ts, topics = _pair()
+    d = _adversarial_batch(case, js.num_brokers, topics)
+    want = jagg.apply_deltas_to_agg(
+        jagg.compute_agg(js, topics),
+        jagg.AggDelta(**{k: jnp.asarray(d[k]) for k in BATCH_KEYS}),
+        jnp.asarray(d["sel"]), jnp.asarray(d["pot"]), jnp.asarray(d["lbi"]))
+    agg = tagg.compute_agg(ts, topics)
+    got = tagg.apply_deltas_to_agg(
+        agg, types.SimpleNamespace(**{k: torch.from_numpy(d[k])
+                                      for k in BATCH_KEYS}),
+        torch.from_numpy(d["sel"]), torch.from_numpy(d["pot"]),
+        torch.from_numpy(d["lbi"]))
+    _assert_agg_equal(want, got)
+    # K4's event order gives the twin's bits.
+    model = _k4_event_order(agg, d)
+    twin = torch.cat([got.broker_load, got.pot_nw_out[:, None],
+                      got.lbi[:, None]], dim=1)
+    assert torch.equal(model, twin)
+
+
+def _with_fields(js, ts, **fields):
+    """Both packages' states with the same numpy ``fields`` replaced."""
+    return (dataclasses.replace(js, **{k: jnp.asarray(v)
+                                       for k, v in fields.items()}),
+            dataclasses.replace(ts, **{k: torch.from_numpy(v)
+                                       for k, v in fields.items()}))
+
+
+@pytest.mark.parametrize("case", ["one_broker", "idle_brokers", "pad_slots",
+                                  "masked_partitions"])
+def test_compute_agg_matches_on_edge_states(case):
+    """K1's twin against the reference where its fold has the most to get
+    wrong: every replica on one broker (one long serial sum), brokers
+    that host nothing, empty slots, and masked partitions."""
+    js, ts, topics = _pair()
+    rng = np.random.default_rng(21)
+    a = np.asarray(js.assignment).copy()
+    mask = np.asarray(js.partition_mask).copy()
+    if case == "one_broker":
+        a[a >= 0] = 2
+    elif case == "idle_brokers":
+        a[np.isin(a, (1, 5, 6))] = 7
+    elif case == "pad_slots":
+        a[rng.random(a.shape) < 0.3] = -1
+    else:
+        mask[rng.random(mask.shape) < 0.3] = False
+    js, ts = _with_fields(js, ts, assignment=a, partition_mask=mask)
+    want = jagg.compute_agg(js, topics)
+    _assert_agg_equal(want, tagg.compute_agg(ts, topics))
+    reps = np.asarray(want.broker_replicas)
+    if case == "one_broker":
+        assert reps[2] == int(((a >= 0) & mask[:, None]).sum())
+    elif case == "idle_brokers":
+        assert (reps[[1, 5, 6]] == 0).all()
+
+
 def test_pot_lbi_deltas_match():
     js, ts, topics = _pair()
     d = _batch(js.num_brokers, topics)
@@ -177,7 +301,34 @@ def test_compute_derived_and_limits_match():
     for r in Resource:
         for a, b in zip(jderived.resource_limits(js, jd, JBC(), r),
                         tderived.resource_limits(ts, td, TBC(), r)):
-            np.testing.assert_allclose(_np(b), np.asarray(a), rtol=1e-6)
+            np.testing.assert_array_equal(_np(b), np.asarray(a))
     for a, b in zip(jderived.count_limits(jd.avg_replicas, 1.1),
                     tderived.count_limits(td.avg_replicas, 1.1)):
         np.testing.assert_array_equal(_np(b), np.asarray(a))
+
+
+def test_fma_f32_is_xla_contracted_band_arithmetic():
+    """``load - t * cap`` and ``t * cap - load`` in one jitted XLA:CPU
+    loop round once (a fused multiply-add); ``fma_f32`` gives those bits,
+    which a multiply and a subtract rounded apart do not always give."""
+    rng = np.random.default_rng(8)
+    load = (rng.random(4096) * 1e4).astype(np.float32)
+    cap = (rng.random(4096) * 1e4).astype(np.float32)
+    t = np.float32(0.91) * np.float32(rng.random())
+    over, under = jax.jit(lambda l, c: (l - t * c, t * c - l))(load, cap)
+    tl, tc = torch.from_numpy(load), torch.from_numpy(cap)
+    np.testing.assert_array_equal(fma_f32(-t, tc, tl).numpy(), np.asarray(over))
+    np.testing.assert_array_equal(fma_f32(t, tc, -tl).numpy(),
+                                  np.asarray(under))
+    assert (np.asarray(over) != load - t * cap).any()
+
+
+def test_fma_f32_rounds_once_where_f64_rounds_twice():
+    """The exact value lies just above a midpoint of two f32 values, and
+    its f64 rounding lands on the midpoint: rounding that to f32 again
+    would tie to even, one ulp low."""
+    a = torch.tensor(-(2.0 ** -24) * (1 + 2.0 ** -23), dtype=torch.float32)
+    b = torch.tensor(1 - 2.0 ** -23, dtype=torch.float32)
+    c = torch.tensor(1 + 2.0 ** -23, dtype=torch.float32)
+    assert (a.double() * b.double() + c.double()).float().item() == 1.0
+    assert fma_f32(a, b, c).item() == c.item()

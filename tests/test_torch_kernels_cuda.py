@@ -1,11 +1,18 @@
 """The port's four CUDA kernels against their plain twins on the card.
 
+K1 and K4 are held bit for bit against the twin run on a CPU copy, which
+adds in the reference's order; the twin on the card (PyTorch's CUDA
+scatter-adds) sums in another order.
+
 These tests need an NVIDIA GPU with nvcc; they skip elsewhere. On the card
 run them with ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``
 (``chip_smoke.py`` holds the kernels against their twins at the
 100-broker / 10k-partition shapes as well).
 """
 
+import dataclasses
+
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +27,7 @@ from cruise_control_tpu_torch.analyzer.search import ExclusionMasks, SearchConfi
 from cruise_control_tpu_torch.config import DEFAULT_GOALS
 from cruise_control_tpu_torch.model import tensors as tt
 from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
+from cruise_control_tpu_torch.testing import k4_adversarial_batch, k4_drain_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +203,66 @@ def test_segment_reduce_and_select_sources_at_7k_brokers_1m_partitions(card):
     for a, b in zip(tc.select_sources(state, score, weight, 2048),
                     tc.select_sources_plain(state, score, weight, 2048)):
         assert torch.equal(a, b)
+
+
+AGG_FIELDS = ("broker_load", "broker_replicas", "broker_leaders",
+              "pot_nw_out", "lbi", "topic_counts")
+
+
+def _k4_matches_cpu_twin(agg, sub, sel, pot, lbi):
+    got = tagg.apply_deltas_to_agg(agg, sub, sel, pot, lbi)
+    cpu_agg = type(agg)(*(getattr(agg, f).cpu() for f in AGG_FIELDS))
+    cpu_sub = type(sub)(**{k: v.cpu() for k, v in vars(sub).items()})
+    want = tagg.apply_deltas_to_agg_plain(cpu_agg, cpu_sub, sel.cpu(),
+                                          pot.cpu(), lbi.cpu())
+    for f in AGG_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+def test_apply_deltas_on_an_adversarial_batch(card):
+    """K4 at 1,000 brokers / 100 topics, m = 2,048: every row leaves one
+    broker within one topic; every 4th row unselected, naming B-1."""
+    state, meta = random_cluster(1000, 100, 100_000, rf=3, num_racks=8,
+                                 seed=42, skew_to_first=2.0,
+                                 target_utilization=0.55,
+                                 dist=Dist.EXPONENTIAL, device=card)
+    agg = tagg.compute_agg(state, meta.num_topics)
+    _k4_matches_cpu_twin(agg, *k4_adversarial_batch(1000, meta.num_topics,
+                                                    card, seed=3))
+
+
+def test_apply_deltas_on_a_7k_drain_batch(card):
+    """K4 at 7,000 brokers / 700 topics with 50 brokers DEAD: 2,048
+    replicas of the DEAD brokers moved to live ones, every 8th row
+    unselected."""
+    state, meta = random_cluster(7000, 700, 1_000_000, rf=3, num_racks=8,
+                                 seed=42, skew_to_first=2.0,
+                                 target_utilization=0.55,
+                                 dist=Dist.EXPONENTIAL, device=card)
+    state = tt.set_broker_state(state, torch.arange(6950, 7000), 1)
+    agg = tagg.compute_agg(state, meta.num_topics)
+    _k4_matches_cpu_twin(agg, *k4_drain_batch(state, seed=5))
+
+
+@pytest.mark.parametrize("case", ["one_broker", "pad_slots",
+                                  "masked_partitions"])
+def test_segment_reduce_on_edge_states(card, case):
+    """K1 where its sort has the most to get wrong: every replica on one
+    broker (one bucket of every slot), empty slots, masked partitions."""
+    state, meta = _state(card)
+    rng = np.random.default_rng(4)
+    a = state.assignment.cpu().numpy().copy()
+    mask = state.partition_mask.cpu().numpy().copy()
+    if case == "one_broker":
+        a[a >= 0] = 2
+    elif case == "pad_slots":
+        a[rng.random(a.shape) < 0.3] = -1
+    else:
+        mask[rng.random(mask.shape) < 0.3] = False
+    state = dataclasses.replace(state,
+                                assignment=torch.from_numpy(a).to(card),
+                                partition_mask=torch.from_numpy(mask).to(card))
+    got = tagg.compute_agg(state, meta.num_topics)
+    want = tagg.compute_agg_plain(state.to("cpu"), meta.num_topics)
+    for f in AGG_FIELDS:
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f

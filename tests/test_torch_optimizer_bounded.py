@@ -15,14 +15,17 @@ test_torch_optimizer_bounded_cases.py; the 100/10k fixture, with and
 without 5 DEAD brokers, in test_torch_optimizer_bounded_large*.py.
 
 Equal: ``assignment``, ``leader_slot``, every ``GoalResult`` field but
-``duration_s`` and ``residual_violation``, the violated sets,
-balancedness, the proposals and ``last_dispatch_stats()``, except two
-floats: ``residual_violation`` and the violation fingerprint (a crc32 of
-the entry violations) can differ in the last bits, because XLA:CPU
-contracts ``load - threshold * capacity`` into a fused multiply-add and
-the port does not. So ``residual_violation`` is held to rtol 1e-6, and
-the fingerprint is checked to be the port's own entry violations' and
-those violations to match the reference's within rtol 1e-6.
+``duration_s``, the violated sets, balancedness, the proposals and
+``last_dispatch_stats()``, the violation fingerprint (a crc32 of the
+entry violations) included. The entry violations the fingerprint hashes
+are held bit for bit against the reference's too: the port rounds the
+band and capacity differences once, as XLA:CPU's fused multiply-adds do
+(``utils/numerics.py::fma_f32``). One tolerance is kept: with a
+replica-move exclusion (``excluded``), XLA:CPU sums the resource
+distribution goals' 16-broker violation vectors inside their fused
+reduce in an order that is not sequential (the vectors themselves agree
+bit for bit), so those entry violations are held to rtol 1e-6 and the
+fingerprint to the port's own violations.
 """
 
 import dataclasses
@@ -102,11 +105,8 @@ def assert_same_solve(j, t, conf: dict, excluded=()):
     assert len(tr.goal_results) == len(jr.goal_results)
     for a, b in zip(jr.goal_results, tr.goal_results):
         da, db = dataclasses.asdict(a), dataclasses.asdict(b)
-        for key in ("duration_s", "residual_violation"):
-            da.pop(key), db.pop(key)
+        da.pop("duration_s"), db.pop("duration_s")
         assert db == da
-        np.testing.assert_allclose(b.residual_violation,
-                                   a.residual_violation, rtol=1e-6)
     assert tr.violated_goals_before == jr.violated_goals_before
     assert tr.violated_goals_after == jr.violated_goals_after
     assert tr.balancedness_before == jr.balancedness_before
@@ -116,10 +116,13 @@ def assert_same_solve(j, t, conf: dict, excluded=()):
         [(p.topic, p.partition, tuple(p.old_replicas), tuple(p.new_replicas),
           p.old_leader, p.new_leader) for p in jr.proposals]
     jd, td = jopt.last_dispatch_stats(), topt.last_dispatch_stats()
-    jfp, tfp = jd.pop("violation_fingerprint", None), \
-        td.pop("violation_fingerprint", None)
+    tfp = td.get("violation_fingerprint")
+    if excluded:
+        # the one kept tolerance (module docstring)
+        jfp, tfp = jd.pop("violation_fingerprint", None), \
+            td.pop("violation_fingerprint", None)
+        assert (tfp is None) == (jfp is None)
     assert td == jd
-    assert (tfp is None) == (jfp is None)
     if tfp is not None:
         # the snapshot the fingerprint hashes, taken on the input states
         _chain, jv, _jo, _off = jopt.goal_entry_stats(
@@ -132,7 +135,10 @@ def assert_same_solve(j, t, conf: dict, excluded=()):
             jm.num_topics,
             TMasks.from_numpy("cpu", excluded_replica_move_brokers=mask))[0]
         assert tfp == violation_fingerprint(tv)
-        np.testing.assert_allclose(tv, jv, rtol=1e-6)
+        if excluded:
+            np.testing.assert_allclose(tv, jv, rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(tv, jv)
 
 
 @pytest.mark.parametrize("async_rb", [True, False])
