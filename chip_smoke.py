@@ -54,18 +54,25 @@ prints its wall):
 8. The kernels at the bounded path's shapes, from phase 5's recorded
    inputs: K3 at its cap, K4 at m = 2,048 and on an adversarial batch
    (every row leaving broker 0 within topic 0, every 4th row unselected
-   and naming broker B-1), K1 and K2 at 1k/100k (K1's offline mode on
-   phase 6's recorded input), each against its twin as in phase 2, and
-   timed.
+   and naming broker B-1), K1 and K2 at 1k/100k (K1's offline mode and
+   K2 also on phase 6's first recorded calls: 4,971 offline replicas,
+   each weighing 1e30 in K2's input), each against its twin as in phase
+   2, and timed.
 9. K1 (full and offline), K2 and K4 at 7,000 brokers / 1M partitions /
    700 topics with the last 50 brokers DEAD: K1 and K4 bitwise against
    their twins on a CPU copy (K4 on 2,048 replicas of the DEAD brokers
-   moved to seeded live brokers, every 8th row unselected), K2 exact;
-   timed. K1's offline check fails on an input without offline replicas
-   (an all-zero twin output).
+   moved to seeded live brokers, every 8th row unselected), K2 exact on
+   DiskUsageDistributionGoal's scores and weights as the round body
+   builds them (the offline count added to the score, 6,830 offline
+   replicas at 1e30) and without that override; timed. K1's offline
+   check fails on an input without offline replicas (an all-zero twin
+   output).
 10. One JSON line describing each kernel, K1's two modes apart (at the
     bounded path's shapes, with the other shapes under
-    ``other_shapes``), then the device line.
+    ``other_shapes``), then the device line. Every line carries its
+    device launches per call from the profiler; K2's lines also the nodes
+    of a CUDA graph capturing one call, which must be the same at every
+    shape, or the run fails.
 """
 
 from __future__ import annotations
@@ -130,20 +137,27 @@ def _dev_us(evt, self_only: bool) -> float:
 
 
 def device_ms(fn, kernel_names, reps: int = REPS):
-    """Device time per call of the named CUDA kernels, from a
-    torch.profiler trace of ``reps`` calls; None when the trace shows no
-    device time (then only the CUDA-event time stands)."""
+    """(device time per call of the named CUDA kernels, their device
+    launches per call), from a torch.profiler trace of ``reps`` calls
+    after one skipped and two warm-up steps (a trace started without them
+    loses the events of its first calls once the process has traced
+    before); the time is None when the trace shows no device time (then
+    only the CUDA-event time stands)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=2, active=reps)) as prof:
+        for _ in range(3 + reps):
             fn()
-        torch.cuda.synchronize()
-    total = sum(_dev_us(e, False) for e in prof.key_averages()
-                if any(n in e.key for n in kernel_names))
-    return total / reps / 1e3 if total > 0 else None
+            torch.cuda.synchronize()
+            prof.step()
+    mine = [e for e in prof.key_averages()
+            if any(n in e.key for n in kernel_names)]
+    total = sum(_dev_us(e, False) for e in mine)
+    return (total / reps / 1e3 if total > 0 else None,
+            sum(e.count for e in mine) / reps)
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -236,8 +250,9 @@ def measure(fn, plain_fn, kernel_names, nbytes, ops, library_fn=None,
     """CUDA-event and profiler times of a kernel's wrapper, its twin's
     time, its bound and the library yardstick's time."""
     bms, bby = bound(nbytes, ops)
-    return dict(ms=cuda_ms(fn, reps), device_ms=device_ms(fn, kernel_names,
-                                                          reps),
+    dev_ms, dev_launches = device_ms(fn, kernel_names, reps)
+    return dict(ms=cuda_ms(fn, reps), device_ms=dev_ms,
+                device_launches_per_call=dev_launches,
                 plain_ms=cuda_ms(plain_fn, max(3, reps // 4)), bound_ms=bms,
                 bound_by=bby,
                 library_ms=cuda_ms(library_fn, reps) if library_fn else None)
@@ -246,8 +261,10 @@ def measure(fn, plain_fn, kernel_names, nbytes, ops, library_fn=None,
 K1_KERNELS = ["count_kernel", "column_scan_kernel", "base_scan_kernel",
               "place_kernel", "bucket_fold_kernel"]
 K1_OFFLINE_KERNELS = ["offline_count_kernel", "to_float_kernel"]
-K2_KERNELS = ["keys_kernel", "tile_topk_kernel", "mark_kernel", "best_kernel",
-              "assemble_kernel"]
+# K2's wrapper zeroes its counters with one memset a call (the device
+# event's name; "cudaMemsetAsync" is the host's).
+K2_KERNELS = ["digit_kernel", "seed_kernel", "compact_kernel", "rank_kernel",
+              "broker_kernel", "Memset (Device)"]
 K3_KERNELS = ["reduce_rows_kernel", "topk_gather_kernel", "dedupe_kernel",
               "ranks_kernel", "scan_kernel"]
 K4_KERNELS = ["carry_copy_kernel", "event_fold_kernel"]
@@ -340,22 +357,50 @@ def k1_offline_line(agg_mod, state, label: str) -> dict:
 
 
 def check_k2(candidates_mod, args, label: str) -> dict:
+    """K2 exact against its twin; timed beside a partial yardstick,
+    ``torch.topk`` of the masked flat weights at ``half``: the global
+    block alone, and not in the reference's tie order. Its launches a call
+    are the nodes of a CUDA graph that captures one call."""
     import torch
+
+    from cruise_control_tpu_torch.testing import (
+        cuda_graph_capture, cuda_graph_nodes,
+    )
     got = candidates_mod.select_sources(*args)
     want = candidates_mod.select_sources_plain(*args)
     for name, a, b in zip(("cand_p", "cand_s", "src_valid"), got, want):
         if not torch.equal(a, b):
             fail(f"K2 {name} at {label} differs from its twin")
-    state = args[0]
+    state, score, weight, _num_sources = args
     p, s = state.assignment.shape
     b = state.num_brokers
     k = got[0].shape[0]
-    print(f"K2 select_sources at {label}: ok (exact, k={k}, B={b})")
-    return dict(shape=f"{label}, k={k}", max_abs_err=0.0,
+    half = k - 2 * min(k // 4, b)
+    flat = torch.where(candidates_mod.on_source(state, score), weight,
+                       torch.full((), float("-inf"), device=weight.device)
+                       ).reshape(-1)
+    ties = int((flat == flat.max()).sum())
+    print(f"K2 select_sources at {label}: ok (exact, k={k}, half={half}, "
+          f"B={b}; {int(got[2].sum())} valid rows; {ties} rows at the top "
+          f"weight {float(flat.max()):g})")
+    line = dict(shape=f"{label}, k={k}", max_abs_err=0.0,
+                library_call="torch.topk of the masked flat weights at half "
+                             "(partial: the global block only, not in the "
+                             "reference's tie order)",
                 **measure(lambda: candidates_mod.select_sources(*args),
                           lambda: candidates_mod.select_sources_plain(*args),
                           K2_KERNELS, p * s * (4 + 4) + p + b * 4 + k * 9,
-                          p * s))
+                          p * s, lambda: torch.topk(flat, half)))
+    graph, _out = cuda_graph_capture(
+        lambda: candidates_mod.select_sources(*args))
+    line["graph_launches_per_call"] = cuda_graph_nodes(graph)
+    print(f"  K2 at {label}: {line['ms']:.4f} ms by CUDA events, device "
+          f"{line['device_ms']} ms, {line['graph_launches_per_call']} "
+          f"launches a call in a captured CUDA graph (profiler: "
+          f"{line['device_launches_per_call']}), twin "
+          f"{line['plain_ms']:.3f} ms, torch.topk {line['library_ms']:.4f} "
+          f"ms, bound {line['bound_ms']:.5f} ms")
+    return line
 
 
 def check_k3(search_mod, pre_fields, call, label: str) -> dict:
@@ -566,22 +611,17 @@ def main() -> int:
         from cruise_control_tpu_torch.analyzer import optimizer as opt_mod
         from cruise_control_tpu_torch.analyzer import search as search_mod
         from cruise_control_tpu_torch.analyzer.candidates import PRE_FIELDS
-        from cruise_control_tpu_torch.analyzer.constraint import (
-            BalancingConstraint,
-        )
-        from cruise_control_tpu_torch.analyzer.derived import compute_derived
-        from cruise_control_tpu_torch.analyzer.goals import ALL_GOALS
         from cruise_control_tpu_torch.analyzer.optimizer import (
             GoalOptimizer, goals_by_priority,
         )
-        from cruise_control_tpu_torch.analyzer.search import goal_aux
         from cruise_control_tpu_torch.config import CruiseControlConfig
         from cruise_control_tpu_torch.common.broker_state import BrokerState
         from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
         from cruise_control_tpu_torch.model.tensors import set_broker_state
         from cruise_control_tpu_torch.testing import (
-            OUTCOME_FIELDS, build_fixture, k4_adversarial_batch,
-            k4_drain_batch, load_reference_outcomes, outcome,
+            OUTCOME_FIELDS, build_fixture, k2_round_inputs,
+            k4_adversarial_batch, k4_drain_batch, load_reference_outcomes,
+            outcome,
         )
     except ImportError as exc:
         print(f"the port package is missing beside chip_smoke.py: {exc}",
@@ -780,6 +820,7 @@ def main() -> int:
         if not rec_d.calls["segment_reduce_offline"]:
             fail("the drain-50 solve never reached K1's offline mode")
         (drain_offline_state,), _ = rec_d.calls["segment_reduce_offline"][0]
+        drain_k2_args, _ = rec_d.calls["select_sources"][0]
         del rec_d
 
     # -- 7. default config (adaptive dispatch) ---------------------------------
@@ -805,7 +846,9 @@ def main() -> int:
             busy.update(wall=wall, rounds=out[1]["rounds"],
                         busy=sum(_dev_us(e, True) for e in avgs) / 1e6,
                         ops=sum(e.count for e in avgs))
-            for kname, knames in (("k4", K4_KERNELS), ("k1", K1_KERNELS)):
+            # K2's kernels without the memset name, which other ops share.
+            for kname, knames in (("k4", K4_KERNELS), ("k1", K1_KERNELS),
+                                  ("k2", K2_KERNELS[:-1])):
                 busy[f"{kname}_s"] = sum(
                     _dev_us(e, True) for e in avgs
                     if any(n in e.key for n in knames)) / 1e6
@@ -831,9 +874,10 @@ def main() -> int:
               f"{busy['busy']:.3f} s = {busy['busy'] / busy['wall']:.1%} of "
               f"its wall, {busy['ops']} device ops (profiler on)")
         print(f"profile: K4 apply_deltas {busy['k4_s']:.3f} s = "
-              f"{busy['k4_s'] / busy['busy']:.1%} and K1 full mode "
-              f"{busy['k1_s']:.3f} s = {busy['k1_s'] / busy['busy']:.1%} of "
-              f"that pass's device time")
+              f"{busy['k4_s'] / busy['busy']:.1%}, K1 full mode "
+              f"{busy['k1_s']:.3f} s = {busy['k1_s'] / busy['busy']:.1%} and "
+              f"K2 select_sources {busy['k2_s']:.3f} s = "
+              f"{busy['k2_s'] / busy['busy']:.1%} of that pass's device time")
         for key, count, dev_ms in busy.pop("top"):
             print(f"  device {dev_ms:9.2f} ms  calls {count:6d}  {key}")
         kernels.LAUNCHES.clear()
@@ -873,6 +917,10 @@ def main() -> int:
             "select_sources": check_k2(
                 cand_mod, rec.picked["select_sources"][0],
                 f"{shapes_1k} deficit-sized"),
+            "select_sources_drain": check_k2(
+                cand_mod, drain_k2_args,
+                f"{shapes_1k} drain-50 first call (offline replicas at "
+                "1e30)"),
             "select_batch": check_k3(search_mod, PRE_FIELDS,
                                      rec.picked["select_batch"],
                                      f"{shapes_1k} cap"),
@@ -902,17 +950,26 @@ def main() -> int:
             agg_mod, ((big_agg, *k4_drain_batch(big, seed=5)), {}),
             f"{shapes_7k} drain, 50 brokers DEAD")
         del big_agg
-        goal = ALL_GOALS["DiskUsageDistributionGoal"]()
-        derived = compute_derived(big)
-        aux = goal_aux(goal, big, derived, BalancingConstraint(),
-                       big_meta.num_topics)
-        score = goal.source_score(big, derived, BalancingConstraint(), aux) \
-            .to(torch.float32)
-        weight = goal.replica_weight(big, derived, BalancingConstraint(),
-                                     aux).to(torch.float32)
+        score, weight = k2_round_inputs(big, big_meta.num_topics)
         lines_7k["select_sources"] = check_k2(
-            cand_mod, (big, score, weight, CAP_M), shapes_7k)
-        del big, derived, aux, score, weight
+            cand_mod, (big, score, weight, CAP_M),
+            f"{shapes_7k}, 50 brokers DEAD, round inputs (offline replicas "
+            "at 1e30)")
+        score, weight = k2_round_inputs(big, big_meta.num_topics,
+                                        offline_override=False)
+        lines_7k["select_sources_disk"] = check_k2(
+            cand_mod, (big, score, weight, CAP_M),
+            f"{shapes_7k}, DiskUsageDistributionGoal's weights alone")
+        del big, score, weight
+        k2_lines = [lines_100["select_sources"], lines["select_sources"],
+                    lines.pop("select_sources_drain"),
+                    lines_7k["select_sources"],
+                    lines_7k.pop("select_sources_disk")]
+        k2_launches = {ln["shape"]: ln["graph_launches_per_call"]
+                       for ln in k2_lines}
+        print(f"K2 launches per call (CUDA graph nodes): {k2_launches}")
+        if len(set(k2_launches.values())) != 1:
+            fail("K2's launch count per call depends on the shape")
 
     # -- 10. result lines -------------------------------------------------------
     replaces = {
@@ -939,6 +996,7 @@ def main() -> int:
         line["other_shapes"] = (
             [lines_100[name]] if name in lines_100 else []) + (
             [adv_line] if name == "apply_deltas" else []) + (
+            k2_lines[2:] if name == "select_sources" else
             [lines_7k[name]] if name in lines_7k else [])
         kernel_lines.append(line)
     print(json.dumps({"kernels": kernel_lines, "card": card,

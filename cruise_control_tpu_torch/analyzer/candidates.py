@@ -165,8 +165,8 @@ def compute_deltas(state: ClusterTensors, derived: DerivedState,
     )
 
 
-def _on_source(state: ClusterTensors, source_score: torch.Tensor,
-               ) -> torch.Tensor:
+def on_source(state: ClusterTensors, source_score: torch.Tensor,
+              ) -> torch.Tensor:
     """[P, S] bool — slot holds a replica on a positive-score broker."""
     score_pad = torch.cat([source_score, source_score.new_tensor([-1.0])])
     return (score_pad[broker_segments(state)] > 0.0) & replica_exists(state)
@@ -183,7 +183,7 @@ def select_sources_plain(state: ClusterTensors, source_score: torch.Tensor,
     s_dim = state.max_replication_factor
     dev = state.device
     neg_inf = torch.full((), float("-inf"), device=dev)
-    flat_weight = torch.where(_on_source(state, source_score),
+    flat_weight = torch.where(on_source(state, source_score),
                               replica_weight, neg_inf).reshape(-1)
     n_flat = flat_weight.shape[0]
     k_src = min(num_sources, n_flat)
@@ -228,10 +228,12 @@ def select_sources_plain(state: ClusterTensors, source_score: torch.Tensor,
             (top_idx % s_dim).to(torch.int32), src_valid)
 
 
-# Keys per block of the kernel's tiled top-k, and the most brokers its
-# single-block broker sort takes (csrc/select_sources.cu).
-_SELECT_TILE = 2048
-_SELECT_MAX_BROKERS = 16384
+# The most global rows (``half``) and brokers the kernel takes
+# (csrc/select_sources.cu): half <= 2048 covers k_src = 2048 at any broker
+# count; the broker ranks and best slots are sized for 16,384 brokers.
+# Row indices are 32-bit: P*S < 2**31.
+SELECT_MAX_HALF = 2048
+SELECT_MAX_BROKERS = 16384
 
 
 def select_sources(state: ClusterTensors, source_score: torch.Tensor,
@@ -251,8 +253,10 @@ def select_sources(state: ClusterTensors, source_score: torch.Tensor,
     k_src = min(num_sources, n_flat)
     quarter = min(k_src // 4, b)
     half = k_src - 2 * quarter
-    if half > _SELECT_TILE // 2 or b > _SELECT_MAX_BROKERS:
-        raise kernels.limit_error("select_sources", f"half={half}, B={b}")
+    if half > SELECT_MAX_HALF or b > SELECT_MAX_BROKERS \
+            or not 0 < n_flat < 2 ** 31:
+        raise kernels.limit_error("select_sources",
+                                  f"half={half}, B={b}, P*S={n_flat}")
     req = kernels.requirer("select_sources")
     weight = req(replica_weight, dev, torch.float32, (p, s), "replica_weight")
     score = req(source_score, dev, torch.float32, (b,), "source_score")
@@ -261,20 +265,14 @@ def select_sources(state: ClusterTensors, source_score: torch.Tensor,
     cand_p = torch.empty(k_src, dtype=torch.int32, device=dev)
     cand_s = torch.empty(k_src, dtype=torch.int32, device=dev)
     src_valid = torch.empty(k_src, dtype=torch.bool, device=dev)
-    tiles = -(-n_flat // _SELECT_TILE)
-    keys = torch.empty(n_flat, dtype=torch.int64, device=dev)
-    partial = torch.empty(2 * tiles * max(half, 1), dtype=torch.int64,
-                          device=dev)
-    top = torch.empty(max(half, 1), dtype=torch.int64, device=dev)
-    marks = torch.zeros(n_flat, dtype=torch.uint8, device=dev)
-    best = torch.zeros(2 * b, dtype=torch.int64, device=dev)
     lib = kernels.library("select_sources")
+    scratch = torch.empty(lib.cc_select_sources_scratch_bytes(b, half),
+                          dtype=torch.uint8, device=dev)
     code = lib.cc_select_sources(
         weight.data_ptr(), score.data_ptr(), assignment.data_ptr(),
         pmask.data_ptr(), p, s, b, half, quarter, cand_p.data_ptr(),
-        cand_s.data_ptr(), src_valid.data_ptr(), keys.data_ptr(),
-        partial.data_ptr(), top.data_ptr(), marks.data_ptr(),
-        best.data_ptr(), partial.numel(), kernels.stream_ptr(dev))
+        cand_s.data_ptr(), src_valid.data_ptr(), scratch.data_ptr(),
+        kernels.stream_ptr(dev))
     kernels.check(code, "select_sources")
     kernels.LAUNCHES["select_sources"] += 1
     return cand_p, cand_s, src_valid
@@ -326,7 +324,7 @@ def generate_candidates(state: ClusterTensors, derived: DerivedState,
 
     if include_leadership or leadership_only:
         lead_weight = torch.where(
-            _on_source(state, source_score) & is_leader_slot(state),
+            on_source(state, source_score) & is_leader_slot(state),
             replica_weight, torch.full((), float("-inf"), device=dev))
         flat_lw = lead_weight.reshape(-1)
         k_l = min(num_sources, flat_lw.shape[0])

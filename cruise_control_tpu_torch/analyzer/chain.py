@@ -35,7 +35,7 @@ import torch
 from ..model.tensors import (
     ClusterTensors, alive_mask, broker_segments, offline_replicas,
 )
-from ..utils.numerics import xla_sum
+from ..utils.numerics import VECTOR_SUM_LENGTHS, xla_sum, xla_vector_sum
 from .agg import (
     AggCarry, apply_deltas_to_agg, compute_agg, maybe_refresh,
     offline_per_broker, pot_lbi_deltas,
@@ -45,6 +45,7 @@ from .constraint import BalancingConstraint
 from .derived import compute_derived
 from .fill import pow2_width, targets_enabled
 from .goals.base import Goal
+from .goals.distribution import ResourceDistributionGoal
 from .search import (
     _OFFLINE_BONUS, ExclusionMasks, OptimizationFailureError, SearchConfig,
     apply_selected, apply_swap_selection, cumulative_select, goal_aux,
@@ -278,11 +279,19 @@ def chain_all_goal_stats(state: ClusterTensors, goals: tuple[Goal, ...],
     ``state`` (derived state shared), in one host read: the bounded
     path's fingerprint-skip snapshot."""
     derived = _derived(state, masks)
+    # With a replica-move exclusion mask in the program, XLA:CPU
+    # vectorizes the resource distribution goals' violation reduce at some
+    # broker counts (``xla_vector_sum``).
+    vectorized = masks.excluded_replica_move_brokers is not None \
+        and state.num_brokers in VECTOR_SUM_LENGTHS
     viols, objs = [], []
     for g in goals:
         aux = goal_aux(g, state, derived, constraint, num_topics)
-        viols.append(xla_sum(g.broker_violations(state, derived, constraint,
-                                                 aux).to(torch.float32), 0))
+        per_broker = g.broker_violations(state, derived, constraint,
+                                         aux).to(torch.float32)
+        viols.append(xla_vector_sum(per_broker)
+                     if vectorized and isinstance(g, ResourceDistributionGoal)
+                     else xla_sum(per_broker, 0))
         objs.append(g.objective(state, derived, constraint, aux)
                     .to(torch.float32))
     host = torch.stack(viols + objs).cpu().numpy()

@@ -95,8 +95,8 @@ _SIGNATURES = {
                                             ctypes.c_longlong),
     },
     "select_sources": {
-        "cc_select_sources": [_VP] * 4 + [_I] * 5 + [_VP] * 3 + [_VP] * 5
-        + [_I, _VP],
+        "cc_select_sources": [_VP] * 4 + [_I] * 5 + [_VP] * 5,
+        "cc_select_sources_scratch_bytes": ([_I, _I], ctypes.c_longlong),
     },
     "select_batch": {
         "cc_select_batch": [_VP] * 9 + [_I] * 6 + [_VP] * 6
@@ -141,7 +141,8 @@ def stream_ptr(device) -> int:
 LIMITS = {
     "segment_reduce": "P*S < 2**31 slots and, in full mode, B <= 16384 "
                       "brokers (two [B] histograms in shared memory)",
-    "select_sources": "half <= 1024 global rows and B <= 16384 brokers",
+    "select_sources": "half <= 2048 global rows (k_src = 2048 at any B), "
+                      "B <= 16384 brokers and 0 < P*S < 2**31",
     "select_batch": "<= 4096 reduced rows (move + leadership) and "
                     "1 <= m <= 2048",
     "apply_deltas": "m <= 2048 rows (2m events in one block's radix sort) "

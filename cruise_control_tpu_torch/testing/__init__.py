@@ -5,7 +5,9 @@
 ``_run_stage`` recipe at 1,000 brokers / 100k partitions, healthy and with
 its last 50 brokers DEAD), regenerated and checked by
 ``tests/test_torch_reference_outcomes.py``. ``chip_smoke.py`` holds the
-port's card run against them without importing JAX.
+port's card run against them without importing JAX. The module also
+holds what the card checks and the tests share: the kernels' adversarial
+inputs and the CUDA-graph capture that counts a call's launches.
 
 :func:`outcome` summarises a solve in the file's form. It reads only the
 attributes both packages' ``OptimizerResult`` share and numpy copies of
@@ -169,3 +171,137 @@ def k4_drain_batch(state, m: int = 2048, seed: int = 0):
     pot, lbi = pot_lbi_deltas(state, sub)
     sel = torch.from_numpy(np.arange(m) % 8 != 7).to(state.device)
     return sub, sel, pot, lbi
+
+
+# Inputs on which K2's order is hardest to keep: ties in the value bits
+# that only the row index breaks, signed zeros, fewer source rows than the
+# global block, and a top broker without a second row.
+K2_CASES = ("offline_1e30", "signed_zeros", "all_equal", "few_sources",
+            "single_replica_broker")
+
+
+def k2_half(num_rows: int, num_brokers: int, num_sources: int) -> int:
+    """The global block's size for ``select_sources`` at these shapes."""
+    k_src = min(num_sources, num_rows)
+    return k_src - 2 * min(k_src // 4, num_brokers)
+
+
+def k2_adversarial_inputs(assignment, num_brokers: int, num_sources: int,
+                          case: str, seed: int = 0,
+                          ) -> tuple[np.ndarray, np.ndarray]:
+    """``(replica_weight [P, S] f32, source_score [B] f32)`` for
+    ``select_sources`` over ``assignment`` (numpy, -1 for an empty slot)
+    in one of ``K2_CASES``, drawn from ``seed``:
+
+    - ``offline_1e30``: uniform weights, and the weight 1e30 on every
+      replica of the last brokers, as the chain gives offline replicas,
+      taking brokers until they host 1.5 x the global block (so ties fill
+      the block and spill past it); those brokers' scores positive;
+    - ``signed_zeros``: -0.0 and +0.0 on 60 % of the rows, small
+      integers on the rest;
+    - ``all_equal``: every weight 1.0;
+    - ``few_sources``: one or more brokers with a positive score, hosting
+      together fewer rows than the global block;
+    - ``single_replica_broker``: broker 1 scores highest and has one
+      finite-weight replica (weight 0, below the global block), so it
+      has no second-best row.
+    Elsewhere scores are uniform in [-0.5, 0.5)."""
+    assignment = np.asarray(assignment)
+    rng = np.random.default_rng(seed)
+    shape = assignment.shape
+    half = k2_half(assignment.size, num_brokers, num_sources)
+    score = (rng.random(num_brokers) - 0.5).astype(np.float32)
+    weight = rng.random(shape).astype(np.float32)
+    hosted = np.bincount(assignment[assignment >= 0].ravel(),
+                         minlength=num_brokers)
+    if case == "offline_1e30":
+        taken, b = 0, num_brokers
+        while taken <= 1.5 * half and b > 0:
+            b -= 1
+            taken += hosted[b]
+        weight[assignment >= b] = np.float32(1e30)
+        score[b:] = np.abs(score[b:]) + np.float32(1.0)
+    elif case == "signed_zeros":
+        weight = rng.integers(0, 3, shape).astype(np.float32)
+        zero = rng.random(shape) < 0.6
+        weight[zero] = np.where(rng.random(shape) < 0.5, np.float32(-0.0),
+                                np.float32(0.0))[zero]
+    elif case == "all_equal":
+        weight[:] = 1.0
+    elif case == "few_sources":
+        score[:] = -1.0
+        taken = 0
+        for b in np.argsort(hosted, kind="stable"):
+            if taken + hosted[b] >= half:
+                break
+            score[b] = 1.0
+            taken += hosted[b]
+        if taken == 0:
+            raise ValueError("no broker hosts fewer rows than the block")
+    elif case == "single_replica_broker":
+        rows = np.argwhere(assignment == 1)
+        weight[assignment == 1] = -np.inf
+        weight[tuple(rows[len(rows) // 2])] = 0.0
+        score[1] = np.float32(10.0)
+    else:
+        raise ValueError(f"unknown K2 case {case!r}")
+    return weight, score
+
+
+def k2_round_inputs(state, num_topics: int,
+                    goal_name: str = "DiskUsageDistributionGoal",
+                    offline_override: bool = True):
+    """``(source_score, replica_weight)`` as the chain's round body builds
+    them for ``goal_name`` on ``state`` (``analyzer/chain.py``): with
+    ``offline_override``, each broker's offline replica count is added to
+    its score and every offline replica weighs 1e30."""
+    import torch
+
+    from ..analyzer.agg import offline_per_broker
+    from ..analyzer.constraint import BalancingConstraint
+    from ..analyzer.derived import compute_derived
+    from ..analyzer.goals import ALL_GOALS
+    from ..analyzer.search import goal_aux
+    from ..model.tensors import offline_replicas
+    goal = ALL_GOALS[goal_name]()
+    derived = compute_derived(state)
+    constraint = BalancingConstraint()
+    aux = goal_aux(goal, state, derived, constraint, num_topics)
+    score = goal.source_score(state, derived, constraint, aux) \
+        .to(torch.float32)
+    weight = goal.replica_weight(state, derived, constraint, aux) \
+        .to(torch.float32)
+    if offline_override:
+        score = score + offline_per_broker(state)
+        weight = torch.where(offline_replicas(state),
+                             torch.full((), 1e30, device=state.device),
+                             weight)
+    return score, weight
+
+
+def cuda_graph_capture(fn):
+    """``(graph, output)``: one call of ``fn`` captured in a CUDA graph
+    (after one call outside it), its cudaGraph_t kept for inspection. The
+    capture fails if the call synchronises or reads device data on the
+    host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    return graph, out
+
+
+def cuda_graph_nodes(graph) -> int:
+    """The nodes of a captured graph: every kernel launch and memset."""
+    import ctypes
+    libcuda = ctypes.CDLL("libcuda.so.1")
+    libcuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                        ctypes.POINTER(ctypes.c_size_t)]
+    count = ctypes.c_size_t(0)
+    code = libcuda.cuGraphGetNodes(graph.raw_cuda_graph(), None,
+                                   ctypes.byref(count))
+    if code != 0:
+        raise RuntimeError(f"cuGraphGetNodes returned {code}")
+    return int(count.value)

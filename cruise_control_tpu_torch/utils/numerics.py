@@ -19,7 +19,9 @@ exact in any order and use ``torch.sum`` directly.
 
 XLA:CPU also contracts a multiply feeding an add in one fused loop into a
 fused multiply-add (``fma_f32``), which rounds once where PyTorch's
-elementwise kernels round twice.
+elementwise kernels round twice. Where LLVM's loop vectorizer takes a
+short fused reduce, the association is that of an 8-lane vector
+accumulator instead (``xla_vector_sum``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 _SUM_WINDOW = 32
 _CUMSUM_BLOCK = 16
+_VECTOR_LANES = 8
 
 
 def _seq_sum0(x: torch.Tensor) -> torch.Tensor:
@@ -55,6 +58,42 @@ def xla_sum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
         x = _seq_sum0(torch.movedim(xp, 1, 0))
         n = nw
     return _seq_sum0(x)
+
+
+# Lengths at which XLA:CPU vectorizes the fused violation reduce with 8
+# lanes (``xla_vector_sum``), as a jitted program of the same shape shows
+# (tests/test_torch_agg.py): up to 15 it stays scalar and sequential; at
+# 20-23 neither form was seen to match, and ``xla_sum`` stays; above 32 the
+# reduce is a reduce-window.
+VECTOR_SUM_LENGTHS = frozenset([*range(16, 20), *range(24, 33)])
+
+
+def xla_vector_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of a 1-D f32 tensor whose length is in ``VECTOR_SUM_LENGTHS``
+    as XLA:CPU emits a fused reduce that LLVM's loop vectorizer took: 8
+    lanes (AVX2's 256 bits), lane j adding elements j, j+8, ... in turn,
+    over the first 8 * floor((n - 1) / 8) elements (the loop reads its
+    operand with a strided load whose group leaves a gap, so at least one
+    iteration is left to the scalar epilogue); the lanes then reduced by
+    halves (``llvm.vector.reduce.fadd`` with reassociation: lane j + lane
+    j+4, then j + j+2, then 0 + 1); then the remaining elements added in
+    index order. The reference's optimized HLO and LLVM IR show this form
+    in the resource distribution goals' violation reduce when a
+    replica-move exclusion mask enters it (16 brokers); without the mask
+    that reduce is scalar and sequential (``xla_sum``)."""
+    n = x.shape[0]
+    if n not in VECTOR_SUM_LENGTHS:
+        raise ValueError(f"xla_vector_sum: length {n} is not one at which "
+                         "the reduce was seen vectorized")
+    nv = _VECTOR_LANES * ((n - 1) // _VECTOR_LANES)
+    lanes = _seq_sum0(x[:nv].reshape(-1, _VECTOR_LANES))
+    while lanes.shape[0] > 1:
+        half = lanes.shape[0] // 2
+        lanes = lanes[:half] + lanes[half:]
+    acc = lanes[0]
+    for i in range(nv, n):
+        acc = acc + x[i]
+    return acc
 
 
 def xla_cumsum(x: torch.Tensor, dim: int = 0) -> torch.Tensor:

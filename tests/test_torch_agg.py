@@ -27,7 +27,9 @@ from cruise_control_tpu_torch.analyzer import derived as tderived
 from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint as TBC
 from cruise_control_tpu_torch.model import tensors as tt
 from cruise_control_tpu_torch.model.fixtures import random_cluster as t_random_cluster
-from cruise_control_tpu_torch.utils.numerics import fma_f32
+from cruise_control_tpu_torch.utils.numerics import (
+    VECTOR_SUM_LENGTHS, fma_f32, xla_sum, xla_vector_sum,
+)
 from tests.torch_support import one_torch_thread  # noqa: F401  (autouse)
 
 FIXTURE = dict(num_brokers=14, num_topics=6, num_partitions=300, rf=3,
@@ -332,3 +334,37 @@ def test_fma_f32_rounds_once_where_f64_rounds_twice():
     c = torch.tensor(1 + 2.0 ** -23, dtype=torch.float32)
     assert (a.double() * b.double() + c.double()).float().item() == 1.0
     assert fma_f32(a, b, c).item() == c.item()
+
+
+@pytest.mark.parametrize("n", [9, 15, 16, 19, 24, 32])
+def test_violation_reduce_association_matches_jitted_xla(n):
+    """A masked band-violation reduce over a strided load column, as the
+    reference's resource distribution goals fuse it: XLA:CPU sums it in
+    index order up to 15 elements and with 8 vector lanes at the lengths
+    of ``VECTOR_SUM_LENGTHS`` (``xla_vector_sum``)."""
+    rng = np.random.default_rng(n)
+    for _ in range(6):
+        load = (rng.random((n + 1, 4))
+                * 10.0 ** rng.integers(-3, 5, (n + 1, 1))).astype(np.float32)
+        cap = (rng.random((n, 4)) * 1e3).astype(np.float32)
+        alive = rng.random(n) < 0.9
+        excluded = rng.random(n) < 0.2
+        avg = np.float32(rng.random())
+
+        def reduce(load, cap, alive, excluded, avg):
+            # alive and not excluded, inside the fusion, as the reference
+            up, lo = avg * 1.09, avg * 0.91
+            v = jnp.maximum(load[:n, 1] - up * cap[:, 1], 0) \
+                + jnp.maximum(lo * cap[:, 1] - load[:n, 1], 0)
+            return jnp.where(alive & ~excluded, v, 0.0).sum()
+
+        want = np.asarray(jax.jit(reduce)(load, cap, alive, excluded, avg))
+        up = np.float32(avg * np.float32(1.09))
+        lo = np.float32(avg * np.float32(0.91))
+        tl, tcap = torch.from_numpy(load[:n, 1]), torch.from_numpy(cap[:, 1])
+        v = torch.clamp(fma_f32(-up, tcap, tl), min=0) \
+            + torch.clamp(fma_f32(lo, tcap, -tl), min=0)
+        v = torch.where(torch.from_numpy(alive & ~excluded), v,
+                        torch.zeros(()))
+        got = xla_vector_sum(v) if n in VECTOR_SUM_LENGTHS else xla_sum(v)
+        assert got.numpy() == want

@@ -27,7 +27,10 @@ from cruise_control_tpu_torch.analyzer.search import ExclusionMasks, SearchConfi
 from cruise_control_tpu_torch.config import DEFAULT_GOALS
 from cruise_control_tpu_torch.model import tensors as tt
 from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
-from cruise_control_tpu_torch.testing import k4_adversarial_batch, k4_drain_batch
+from cruise_control_tpu_torch.testing import (
+    K2_CASES, cuda_graph_capture, cuda_graph_nodes, k2_adversarial_inputs,
+    k2_round_inputs, k4_adversarial_batch, k4_drain_batch,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -266,3 +269,72 @@ def test_segment_reduce_on_edge_states(card, case):
     want = tagg.compute_agg_plain(state.to("cpu"), meta.num_topics)
     for f in AGG_FIELDS:
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+
+
+@pytest.fixture(scope="module")
+def k2_states():
+    """The 1k/100k fixture, and 7k/1M with its last 50 brokers DEAD."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    dev = torch.device("cuda")
+    fx = dict(rf=3, num_racks=8, seed=42, skew_to_first=2.0,
+              target_utilization=0.55, dist=Dist.EXPONENTIAL, device=dev)
+    small = random_cluster(1000, 100, 100_000, **fx)
+    big, big_meta = random_cluster(7000, 700, 1_000_000, **fx)
+    big = tt.set_broker_state(big, torch.arange(6950, 7000), 1)
+    return {"1k_100k": small, "7k_1m_dead50": (big, big_meta)}
+
+
+def _k2_matches_twin(state, score, weight, num_sources=2048):
+    got = tc.select_sources(state, score, weight, num_sources)
+    want = tc.select_sources_plain(state, score, weight, num_sources)
+    for a, b, name in zip(got, want, ("cand_p", "cand_s", "src_valid")):
+        assert torch.equal(a, b), name
+    return got
+
+
+@pytest.mark.parametrize("shape", ["1k_100k", "7k_1m_dead50"])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_select_sources_on_adversarial_inputs(k2_states, shape, case):
+    """K2 exact against its twin where ties reach the row index, zeros are
+    signed, the block outruns the source rows, or a top broker has no
+    second row."""
+    state, _meta = k2_states[shape]
+    weight, score = k2_adversarial_inputs(state.assignment.cpu().numpy(),
+                                          state.num_brokers, 2048, case,
+                                          seed=11)
+    dev = state.device
+    _k2_matches_twin(state, torch.from_numpy(score).to(dev),
+                     torch.from_numpy(weight).to(dev))
+
+
+@pytest.mark.parametrize("offline_override", [True, False])
+def test_select_sources_on_round_inputs_at_7k(k2_states, offline_override):
+    """K2 at 7k/1M with 50 brokers DEAD on DiskUsageDistributionGoal's
+    scores and weights as the round body builds them: with the offline
+    override, 6,830 replicas weigh 1e30, more than the global block."""
+    state, meta = k2_states["7k_1m_dead50"]
+    score, weight = k2_round_inputs(state, meta.num_topics,
+                                    offline_override=offline_override)
+    ties = int((weight == 1e30).sum())
+    assert (ties > 1024) == offline_override
+    _k2_matches_twin(state, score, weight)
+
+
+def test_select_sources_is_one_fixed_cuda_graph(k2_states):
+    """A CUDA graph captures a whole call (no host read, no host-side pass
+    count), its replay equals the twin, and it has as many launches at
+    1k/100k as at 7k/1M."""
+    nodes = {}
+    for shape, (state, meta) in k2_states.items():
+        score, weight = k2_round_inputs(state, meta.num_topics)
+        graph, out = cuda_graph_capture(
+            lambda: tc.select_sources(state, score, weight, 2048))
+        nodes[shape] = cuda_graph_nodes(graph)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tc.select_sources_plain(state, score, weight, 2048)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b)
+    assert len(set(nodes.values())) == 1, nodes
+    assert nodes["1k_100k"] > 1
