@@ -6,18 +6,25 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase swallows an error; each
-prints its wall):
+prints its wall). Every solve runs the round loop as CUDA graphs of
+``chain.ROUNDS_PER_BLOCK`` rounds: the first solve of a shape captures
+them (its capture seconds printed), a steady solve must capture nothing,
+and each solve prints its replays, host reads (one per dispatch, the
+freeze-flag polls, the goal statistics) and frozen rounds. Kernel
+launches are counted per replay of each graph.
 
 1. Print the card's name and power limit, build the four CUDA kernels
    (one nvcc per source, all started together) and print the build time.
 2. Fused path, 100 brokers / 10k partitions / RF 3 / 8 racks
-   (``_run_stage``): a warm-up solve recording the real inputs of the
-   kernels of its rounds; each kernel held against its plain PyTorch twin
-   on those inputs (K1 and K4 bit for bit against the twin run on a CPU
-   copy, which sums in the reference's index order; K2 exact; K3 exact on
-   idx/part_ok/has_earlier and bitwise on the pre-deltas) and timed with
-   CUDA events and the profiler beside the twin, its bound and, where one
-   exists, a single PyTorch library call.
+   (``_run_stage``): a warm-up solve (the capture) recording the real
+   inputs of the kernels of its rounds (the eager round before each
+   capture; a call made while a graph captures holds no values); each
+   kernel held against its plain PyTorch twin on those inputs (K1 and K4
+   bit for bit against the twin run on a CPU copy, which sums in the
+   reference's index order; K2 exact; K3 exact on idx/part_ok/has_earlier
+   and bitwise on the pre-deltas) and timed with CUDA events and the
+   profiler beside the twin, its bound and, where one exists, a single
+   PyTorch library call.
 3. Fused main path: launch counts reset, one steady solve, counts read;
    every hard goal satisfied, balancedness rose, proposals exist, every
    kernel launched (K1's full and offline modes counted apart). A
@@ -26,13 +33,13 @@ prints its wall):
    (which the CPU tests hold bit-exact against the JAX package) must agree
    on the violated goals, balancedness, assignment and proposals.
 5. Bounded path, 1,000 brokers / 100k partitions, default config with
-   ``solver.dispatch.target.seconds=0``: a warm-up solve recording the
-   kernels' inputs (among them a deficit-sized round at m = 2,048 over
-   2,048 move and 2,048 leadership rows), then the main path: launch
-   counts reset, one steady solve, counts read, every kernel launched.
-   Every hard goal satisfied and the violated sets, balancedness,
-   proposal count and violation fingerprint equal to the JAX package's
-   CPU outcome carried in
+   ``solver.dispatch.target.seconds=0``: a warm-up solve (the capture)
+   recording the kernels' inputs (among them a deficit-sized round at m =
+   2,048 over 2,048 move and 2,048 leadership rows), then the main path:
+   launch counts reset, one steady solve, counts read, every kernel
+   launched. Every hard goal satisfied and the violated sets,
+   balancedness, proposal count and violation fingerprint equal to the
+   JAX package's CPU outcome carried in
    ``cruise_control_tpu_torch/testing/reference_outcomes.json``; whether
    the assignment and leader digests and the dispatch statistics equal
    the reference's, and the first goal whose moves differ, are printed.
@@ -40,17 +47,19 @@ prints its wall):
    with every dispatch timed, and one with
    ``solver.dispatch.async.readback=false`` (no speculative dispatch),
    each held to the same reference.
-6. The same fixture with its last 50 brokers DEAD, against its entry, as
-   a main path of its own (launch counts reset and read); its first call
-   of K1's offline mode is recorded for phase 8.
+6. The same fixture with its last 50 brokers DEAD, against its entry: a
+   warm-up solve (which records the first call of K1's offline mode for
+   phase 8), then a steady solve as a main path of its own (launch counts
+   reset and read).
 7. The same fixture with the default config (wall-clock adaptive
-   dispatch): a warm-up solve whose TopicReplicaDistributionGoal pass runs
-   under the profiler (the device-busy share of that pass, and K4's and
-   K1's shares of its device time), then a steady solve: wall, rounds,
-   dispatches, launches per kernel. Every hard goal satisfied and the
-   violated sets, balancedness and violation fingerprint equal to the
-   healthy reference; the proposal count and the digest comparison are
-   printed.
+   dispatch): a warm-up solve (its budgets reach the 64-round aggregate
+   refresh, so it captures each goal's refresh variant), a second solve,
+   which must capture nothing, whose TopicReplicaDistributionGoal pass
+   runs under the profiler (the device-busy share of that pass, and K4's
+   and K1's shares of its device time), then a steady solve: wall,
+   rounds, dispatches, launches per kernel. Every hard goal satisfied and the violated sets, balancedness
+   and violation fingerprint equal to the healthy reference; the proposal
+   count and the digest comparison are printed.
 8. The kernels at the bounded path's shapes, from phase 5's recorded
    inputs: K3 at its cap, K4 at m = 2,048 and on an adversarial batch
    (every row leaving broker 0 within topic 0, every 4th row unselected
@@ -67,12 +76,22 @@ prints its wall):
    replicas at 1e30) and without that override; timed. K1's offline
    check fails on an input without offline replicas (an all-zero twin
    output).
-10. One JSON line describing each kernel, K1's two modes apart (at the
+10. The bounded solve at 7,000 brokers / 1M partitions / 700 topics
+    (``bench.py``'s STAGES (7_000, 1_000_000, 0), the targeted column
+    off), pinned dispatch: a warm-up solve (the capture) and a steady
+    solve (launch counts reset and read, every kernel launched), each held
+    to the ``7k_1m`` reference entry as in phase 5; the digests printed.
+    K3 at its cap (m = 2,048), recorded from the warm-up, with the
+    targeted column off, held against its twin as in phase 8 and timed.
+    The swap round's grid at 1M (``search.swap_grid`` and its two stable
+    sorts over [8, P*S] keys) timed with CUDA events.
+11. One JSON line describing each kernel, K1's two modes apart (at the
     bounded path's shapes, with the other shapes under
-    ``other_shapes``), then the device line. Every line carries its
-    device launches per call from the profiler; K2's lines also the nodes
-    of a CUDA graph capturing one call, which must be the same at every
-    shape, or the run fails.
+    ``other_shapes``, and launches per steady solve of every main path),
+    then the device line. Every line carries its device launches per
+    call from the profiler; K2's lines also the nodes of a CUDA graph
+    capturing one call, which must be the same at every shape, or the
+    run fails.
 """
 
 from __future__ import annotations
@@ -166,9 +185,10 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_solve(opt, state, meta, goals, steady_s: float) -> None:
+def profile_solve(opt, state, meta, goals, steady_s: float) -> dict:
     """One more solve under torch.profiler (not the measured one): the
-    device-busy share of its wall and the ops that take the device time."""
+    device-busy share of its wall and the ops that take the device time
+    (the kernels of replayed CUDA graphs among them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -189,6 +209,8 @@ def profile_solve(opt, state, meta, goals, steady_s: float) -> None:
     for e in top:
         print(f"  device {_dev_us(e, True) / 1e3:9.2f} ms  calls {e.count:6d}"
               f"  {e.key[:90]}")
+    return dict(wall_s=wall, busy_s=busy, busy_share=busy / wall,
+                device_ops=launches)
 
 
 def to_cpu(obj):
@@ -205,10 +227,35 @@ def to_cpu(obj):
     return obj.cpu() if obj is not None else None
 
 
+def snapshot(obj):
+    """A recorded argument with every tensor in it cloned: a round's
+    inputs may be the round loop's static buffers, which later replays
+    overwrite."""
+    import dataclasses
+    import types
+
+    import torch
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: snapshot(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    if isinstance(obj, types.SimpleNamespace):
+        return types.SimpleNamespace(**{k: snapshot(v)
+                                        for k, v in vars(obj).items()})
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(snapshot(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: snapshot(v) for k, v in obj.items()}
+    return obj
+
+
 class Recorder:
-    """Wraps the kernel wrappers the chain calls and keeps the inputs of
-    the first call of each, and of the first call that ``wanted`` (kernel
-    name -> predicate over the call's arguments) picks out."""
+    """Wraps the kernel wrappers the chain calls and keeps copies of the
+    inputs of the first call of each, and of the first call that
+    ``wanted`` (kernel name -> predicate over the call's arguments) picks
+    out."""
 
     KEYS = ("segment_reduce", "segment_reduce_offline", "select_sources",
             "select_batch", "apply_deltas")
@@ -225,16 +272,22 @@ class Recorder:
         self._wrap(chain_mod, "apply_deltas_to_agg", "apply_deltas")
 
     def _wrap(self, mod, attr, key):
+        import torch
         orig = getattr(mod, attr)
         calls = self.calls[key]
         want = self._wanted.get(key)
 
         def wrapper(*args, **kwargs):
+            # A call made while a CUDA graph captures runs nothing: its
+            # inputs hold no values yet. The eager round before each
+            # capture gives every kernel real inputs.
+            if torch.cuda.is_current_stream_capturing():
+                return orig(*args, **kwargs)
             if not calls:
-                calls.append((args, kwargs))
+                calls.append((snapshot(args), snapshot(kwargs)))
             if want is not None and key not in self.picked \
                     and want(*args, **kwargs):
-                self.picked[key] = (args, kwargs)
+                self.picked[key] = (snapshot(args), snapshot(kwargs))
             return orig(*args, **kwargs)
 
         self._patches.append((mod, attr, orig))
@@ -476,9 +529,20 @@ def check_k4(agg_mod, call, label: str) -> dict:
 
 
 def outcome_check(name: str, got: dict, want: dict, fields, result) -> None:
-    """Fail unless every hard goal succeeded and ``fields`` equal the
-    reference's; print the rest of the comparison."""
+    """Print the comparison with the reference (digests, the first goal
+    whose moves differ, proposals, dispatch statistics), then fail unless
+    every hard goal succeeded and ``fields`` and the violation
+    fingerprint equal the reference's."""
     from cruise_control_tpu_torch.testing import first_goal_differing
+    stats_got, stats_want = got["dispatch_stats"], want["dispatch_stats"]
+    print(f"{name}: assignment digest equal: "
+          f"{got['assignment_sha256'] == want['assignment_sha256']}; "
+          f"leader digest equal: "
+          f"{got['leader_slot_sha256'] == want['leader_slot_sha256']}; "
+          f"first goal whose moves differ: {first_goal_differing(got, want)}"
+          f"; proposals {got['num_proposals']} (reference "
+          f"{want['num_proposals']}); dispatch stats equal: "
+          f"{stats_got == stats_want} ({got['dispatch_stats']})")
     failed_hard = [g.name for g in result.goal_results
                    if g.is_hard and not g.succeeded]
     if failed_hard:
@@ -489,21 +553,13 @@ def outcome_check(name: str, got: dict, want: dict, fields, result) -> None:
                  f"{want[key]!r}")
     # The fingerprint hashes the entry violations, which no dispatch
     # boundary moves, so every run is held to it.
-    fp_got = got["dispatch_stats"].get("violation_fingerprint")
-    fp_want = want["dispatch_stats"]["violation_fingerprint"]
+    fp_got = stats_got.get("violation_fingerprint")
+    fp_want = stats_want["violation_fingerprint"]
     if fp_got != fp_want:
         fail(f"{name}: violation_fingerprint {fp_got!r} differs from the "
              f"reference's {fp_want!r}")
-    stats_got, stats_want = got["dispatch_stats"], want["dispatch_stats"]
-    print(f"{name}: matches the reference on {', '.join(fields)}; "
-          f"assignment digest equal: "
-          f"{got['assignment_sha256'] == want['assignment_sha256']}; "
-          f"leader digest equal: "
-          f"{got['leader_slot_sha256'] == want['leader_slot_sha256']}; "
-          f"first goal whose moves differ: {first_goal_differing(got, want)}"
-          f"; proposals {got['num_proposals']} (reference "
-          f"{want['num_proposals']}); dispatch stats equal: "
-          f"{stats_got == stats_want} ({got['dispatch_stats']})")
+    print(f"{name}: matches the reference on {', '.join(fields)} and the "
+          f"violation fingerprint {fp_got}; every hard goal satisfied")
 
 
 def solve_summary(label, result, wall) -> int:
@@ -513,6 +569,29 @@ def solve_summary(label, result, wall) -> int:
           f"{result.balancedness_after:.2f}, {len(result.proposals)} "
           f"proposals")
     return rounds
+
+
+def loop_summary(label: str, stats: dict, steady: bool = False) -> dict:
+    """Print a solve's round-loop accounting (``last_loop_stats()``): the
+    graphs it captured and their seconds, replays, host reads and frozen
+    rounds. A steady solve must capture nothing."""
+    reads = stats.get("dispatch_reads", 0) + stats.get("live_polls", 0) \
+        + stats.get("stats_reads", 0)
+    device_rounds = stats.get("device_rounds", 0)
+    frozen = stats.get("frozen_rounds", 0)
+    print(f"{label}: graphs captured {stats.get('captures', 0)} "
+          f"({stats.get('capture_s', 0.0):.3f} s, eager warm-up rounds "
+          f"included), replays {stats.get('replays', 0)}, host reads {reads} "
+          f"({stats.get('dispatch_reads', 0)} dispatch, "
+          f"{stats.get('live_polls', 0)} live polls, "
+          f"{stats.get('stats_reads', 0)} goal statistics), device rounds "
+          f"{device_rounds} of which frozen {frozen} "
+          f"({frozen / max(device_rounds, 1):.1%})")
+    if steady and stats.get("captures", 0):
+        fail(f"{label}: a steady solve captured {stats['captures']} graphs")
+    if not stats.get("replays", 0):
+        fail(f"{label}: no graph was replayed")
+    return dict(stats, host_reads=reads)
 
 
 def speculative_cost(chain_mod, bounded_solve, ref, fields,
@@ -621,7 +700,7 @@ def main() -> int:
         from cruise_control_tpu_torch.testing import (
             OUTCOME_FIELDS, build_fixture, k2_round_inputs,
             k4_adversarial_batch, k4_drain_batch, load_reference_outcomes,
-            outcome,
+            outcome, swap_grid_inputs,
         )
     except ImportError as exc:
         print(f"the port package is missing beside chip_smoke.py: {exc}",
@@ -662,7 +741,10 @@ def main() -> int:
                                              goals=goals_by_priority(cfg))
         torch.cuda.synchronize()
         rec.restore()
-        solve_summary("fused warm-up solve 100/10k", warm, time.time() - t0)
+        warm_100_s = time.time() - t0
+        solve_summary("fused warm-up solve 100/10k", warm, warm_100_s)
+        warm_loop_100 = loop_summary("fused warm-up 100/10k",
+                                     opt.last_loop_stats())
         for key, calls in rec.calls.items():
             if not calls:
                 fail(f"warm-up never reached {key}")
@@ -695,6 +777,8 @@ def main() -> int:
         print(f"violated before: {result.violated_goals_before}")
         print(f"violated after: {result.violated_goals_after}")
         print(f"launches on the fused steady solve: {launches_100}")
+        loop_100 = loop_summary("fused steady 100/10k",
+                                opt.last_loop_stats(), steady=True)
         if final.assignment.device.type != "cuda":
             fail("final state is not on the card")
         if [g.name for g in result.goal_results
@@ -709,7 +793,8 @@ def main() -> int:
                 fail(f"kernel {name} was not launched on the fused path")
         for name in lines_100:
             lines_100[name]["launches"] = launches_100[name]
-        profile_solve(opt, state, meta, goals_by_priority(cfg), steady_100)
+        busy_100 = profile_solve(opt, state, meta, goals_by_priority(cfg),
+                                 steady_100)
         same_runs = torch.equal(warm_final.assignment, final.assignment) \
             and torch.equal(warm_final.leader_slot, final.leader_slot)
         print(f"info: two card runs at 100/10k gave identical assignments: "
@@ -778,9 +863,11 @@ def main() -> int:
             "select_sources": lambda *a, **kw: a[3] == CAP_M,
         }
         rec = Recorder(chain_mod, search_mod, wanted)
-        _o, _s, _m, warm_b, _g, warm_b_s, _r = bounded_solve(
+        warm_opt, _s, _m, warm_b, _g, warm_b_s, _r = bounded_solve(
             "1k_100k", healthy["config"], "bounded warm-up solve 1k/100k")
         rec.restore()
+        warm_loop_1k = loop_summary("bounded warm-up 1k/100k",
+                                    warm_opt.last_loop_stats())
         for key in wanted:
             if key not in rec.picked:
                 fail(f"the 1k/100k warm-up never reached {key} at the cap")
@@ -791,6 +878,8 @@ def main() -> int:
                           f"bounded steady solve 1k/100k ({card})")
         launches_1k = dict(kernels.LAUNCHES)
         print(f"launches on the bounded steady solve: {launches_1k}")
+        loop_1k = loop_summary("bounded steady 1k/100k",
+                               bopt.last_loop_stats(), steady=True)
         for name in Recorder.KEYS:
             if launches_1k.get(name, 0) <= 0:
                 fail(f"kernel {name} was not launched on the bounded path")
@@ -801,15 +890,25 @@ def main() -> int:
     # -- 6. drain-50 ------------------------------------------------------------
     with Phase("bounded 1k/100k drain-50 pinned"):
         drain = refs["1k_100k_drain50"]
+        # The drain's blocks share phase 5's graph keys. Dropped, they are
+        # captured again, and the recorder sees the eager round before
+        # each capture (the replays of cached graphs run nothing it sees).
+        chain_mod.clear_graphs()
         rec_d = Recorder(chain_mod, search_mod)
-        torch.cuda.synchronize()
-        kernels.LAUNCHES.clear()
         try:
-            *_x, res_d, got_d, drain_s, _r = bounded_solve(
+            warm_d_opt, *_x, res_wd, got_wd, warm_d_s, _r = bounded_solve(
                 "1k_100k_drain50", drain["config"],
-                f"bounded solve 1k/100k drain-50 ({card})")
+                "bounded warm-up solve 1k/100k drain-50")
         finally:
             rec_d.restore()
+        outcome_check("1k/100k drain-50 warm-up", got_wd, drain,
+                      pinned_fields, res_wd)
+        loop_summary("bounded warm-up drain-50", warm_d_opt.last_loop_stats())
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.clear()
+        d_opt, *_x, res_d, got_d, drain_s, _r = bounded_solve(
+            "1k_100k_drain50", drain["config"],
+            f"bounded steady solve 1k/100k drain-50 ({card})")
         launches_drain = dict(kernels.LAUNCHES)
         print(f"launches on the drain-50 solve: {launches_drain}")
         for name in Recorder.KEYS:
@@ -817,6 +916,8 @@ def main() -> int:
                 fail(f"kernel {name} was not launched on the drain-50 path")
         outcome_check("1k/100k drain-50 pinned", got_d, drain, pinned_fields,
                       res_d)
+        loop_drain = loop_summary("bounded steady drain-50",
+                                  d_opt.last_loop_stats(), steady=True)
         if not rec_d.calls["segment_reduce_offline"]:
             fail("the drain-50 solve never reached K1's offline mode")
         (drain_offline_state,), _ = rec_d.calls["segment_reduce_offline"][0]
@@ -835,12 +936,14 @@ def main() -> int:
             if index != goal_index or busy:
                 return orig_goal(st, chain, index, *args, **kwargs)
             torch.cuda.synchronize()
+            captures = chain_mod.LOOP_STATS["captures"]
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.time()
                 out = orig_goal(st, chain, index, *args, **kwargs)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
+            busy["captures"] = chain_mod.LOOP_STATS["captures"] - captures
             avgs = [e for e in prof.key_averages()
                     if str(getattr(e, "device_type", "")).endswith("CUDA")]
             busy.update(wall=wall, rounds=out[1]["rounds"],
@@ -860,6 +963,14 @@ def main() -> int:
 
         default_opt = GoalOptimizer(cfg, device="cuda")
         d_state, d_meta = build_fixture(healthy, dev)
+        # The adaptive budgets reach the 64-round aggregate refresh, so
+        # the first solve captures each goal's refresh variant.
+        t0 = time.time()
+        default_opt.optimizations(d_state, d_meta)
+        torch.cuda.synchronize()
+        print(f"default-config warm-up solve 1k/100k: "
+              f"{time.time() - t0:.3f} s")
+        loop_summary("default-config warm-up", default_opt.last_loop_stats())
         opt_mod.optimize_goal_in_chain = profiled_goal
         try:
             t0 = time.time()
@@ -867,9 +978,14 @@ def main() -> int:
             torch.cuda.synchronize()
         finally:
             opt_mod.optimize_goal_in_chain = orig_goal
-        print(f"default-config warm-up solve 1k/100k: "
+        print(f"default-config second solve 1k/100k (its {PROFILED_GOAL} "
+              f"pass profiled, the trace's processing included): "
               f"{time.time() - t0:.3f} s")
-        print(f"profile: {PROFILED_GOAL} pass of the warm-up: "
+        loop_summary("default-config second solve",
+                     default_opt.last_loop_stats(), steady=True)
+        if busy["captures"]:
+            fail(f"the profiled {PROFILED_GOAL} pass captured graphs")
+        print(f"profile: {PROFILED_GOAL} pass of the second solve: "
               f"{busy['wall']:.3f} s, {busy['rounds']} rounds, device busy "
               f"{busy['busy']:.3f} s = {busy['busy'] / busy['wall']:.1%} of "
               f"its wall, {busy['ops']} device ops (profiler on)")
@@ -892,6 +1008,9 @@ def main() -> int:
         stats_a = default_opt.last_dispatch_stats()
         print(f"default-config dispatches: {stats_a}; launches: "
               f"{launches_default}")
+        loop_default = loop_summary("default-config steady 1k/100k",
+                                    default_opt.last_loop_stats(),
+                                    steady=True)
         got_a = outcome(fin.assignment.cpu().numpy(),
                         fin.leader_slot.cpu().numpy(), res_a, stats_a)
         outcome_check("1k/100k default config", got_a, healthy,
@@ -971,7 +1090,81 @@ def main() -> int:
         if len(set(k2_launches.values())) != 1:
             fail("K2's launch count per call depends on the shape")
 
-    # -- 10. result lines -------------------------------------------------------
+    # -- 10. the 7k/1M solve ------------------------------------------------------
+    with Phase("bounded 7k/1M pinned: warm-up and main path"):
+        ref_7k = refs["7k_1m"]
+        # K3 at its cap on this path's inputs: the targeted column is off
+        # at 1M partitions (extra_last_col=False), a branch no other
+        # phase reaches.
+        k3_ms = []
+
+        def k3_at_cap(*a, **kw):
+            k3_ms.append(a[4])
+            return a[4] == CAP_M
+
+        rec_7k = Recorder(chain_mod, search_mod, {"select_batch": k3_at_cap})
+        try:
+            warm_7k_opt, *_x, res_w7, got_w7, warm_7k_s, _r = bounded_solve(
+                "7k_1m", ref_7k["config"], "bounded warm-up solve 7k/1M")
+        finally:
+            rec_7k.restore()
+        outcome_check("7k/1M warm-up", got_w7, ref_7k, pinned_fields, res_w7)
+        warm_loop_7k = loop_summary("bounded warm-up 7k/1M",
+                                    warm_7k_opt.last_loop_stats())
+        del res_w7
+        if "select_batch" not in rec_7k.picked:
+            fail(f"the 7k/1M warm-up never reached K3 at m={CAP_M} "
+                 f"(largest m {max(k3_ms, default=0)})")
+        k3_call = rec_7k.picked.pop("select_batch")
+        del rec_7k
+        k3_args, k3_kwargs = k3_call
+        extra = k3_kwargs.get("extra_last_col",
+                              k3_args[5] if len(k3_args) > 5 else False)
+        if extra:
+            fail("K3 at 7k/1M ran with the targeted column on")
+        lines_7k["select_batch"] = check_k3(
+            search_mod, PRE_FIELDS, k3_call,
+            f"{shapes_7k} cap, targeted column off")
+        del k3_call, k3_args, k3_kwargs
+        torch.cuda.synchronize()
+        kernels.LAUNCHES.clear()
+        opt_7k, st_7k, meta_7k, res_7k, got_7k, steady_7k, rounds_7k = \
+            bounded_solve("7k_1m", ref_7k["config"],
+                          f"bounded steady solve 7k/1M ({card})")
+        launches_7k = dict(kernels.LAUNCHES)
+        print(f"launches on the 7k/1M steady solve: {launches_7k}")
+        for name in Recorder.KEYS:
+            if launches_7k.get(name, 0) <= 0:
+                fail(f"kernel {name} was not launched on the 7k/1M path")
+        outcome_check("7k/1M pinned", got_7k, ref_7k, pinned_fields, res_7k)
+        print(f"7k/1M digests: assignment {got_7k['assignment_sha256']} "
+              f"(reference {ref_7k['assignment_sha256']}), leader slots "
+              f"{got_7k['leader_slot_sha256']} (reference "
+              f"{ref_7k['leader_slot_sha256']})")
+        loop_7k = loop_summary("bounded steady 7k/1M",
+                               opt_7k.last_loop_stats(), steady=True)
+        # The swap round's grid at 1M: [8, P*S] keys and two stable sorts
+        # (search.swap_grid, _per_broker_top_replicas), on
+        # DiskUsageDistributionGoal's inputs at the solve's entry state.
+        derived, src, dst, weight = swap_grid_inputs(st_7k,
+                                                     meta_7k.num_topics)
+        k_b = 8
+        src_b = torch.topk(torch.where(src > 0, src, torch.full(
+            (), float("-inf"), device=dev)), k_b).indices
+        dst_b = torch.topk(dst, k_b).indices
+        swap_grid_ms = cuda_ms(lambda: search_mod.swap_grid(
+            st_7k, derived, src, dst, weight), 5)
+        swap_sorts_ms = cuda_ms(lambda: (
+            search_mod._per_broker_top_replicas(st_7k, weight, src_b, 4,
+                                                largest=True),
+            search_mod._per_broker_top_replicas(st_7k, weight, dst_b, 4,
+                                                largest=False)), 5)
+        print(f"swap grid at 7k/1M ({card}): {swap_grid_ms:.3f} ms a swap "
+              f"round, of which the two [8, {st_7k.num_partitions * 3}] "
+              f"stable sorts {swap_sorts_ms:.3f} ms (CUDA events)")
+        del derived, src, dst, weight, st_7k
+
+    # -- 11. result lines -------------------------------------------------------
     replaces = {
         "segment_reduce": ("cruise_control_tpu_torch/csrc/segment_reduce.cu",
                            "cruise_control_tpu/analyzer/agg.py:70"),
@@ -992,6 +1185,7 @@ def main() -> int:
                     launches_fused_100_10k=launches_100.get(name, 0),
                     launches_default_config_1k=launches_default.get(name, 0),
                     launches_drain50_1k=launches_drain.get(name, 0),
+                    launches_7k_1m=launches_7k.get(name, 0),
                     **lines[name])
         line["other_shapes"] = (
             [lines_100[name]] if name in lines_100 else []) + (
@@ -1000,20 +1194,39 @@ def main() -> int:
             [lines_7k[name]] if name in lines_7k else [])
         kernel_lines.append(line)
     print(json.dumps({"kernels": kernel_lines, "card": card,
-                      "fused_100_10k": {"steady_s": steady_100,
-                                        "rounds": rounds_100},
+                      "rounds_per_block": chain_mod.ROUNDS_PER_BLOCK,
+                      "fused_100_10k": {"warmup_s": warm_100_s,
+                                        "steady_s": steady_100,
+                                        "rounds": rounds_100,
+                                        "warmup_loop": warm_loop_100,
+                                        "loop": loop_100,
+                                        "profiled": busy_100},
                       "bounded_1k_100k_pinned": {
                           "warmup_s": warm_b_s, "steady_s": steady_1k,
                           "rounds": rounds_1k,
                           "dispatch": got_b["dispatch_stats"],
+                          "warmup_loop": warm_loop_1k, "loop": loop_1k,
                           "speculative": spec},
-                      "bounded_1k_100k_drain50_pinned_s": drain_s,
+                      "bounded_1k_100k_drain50_pinned": {
+                          "warmup_s": warm_d_s, "steady_s": drain_s,
+                          "loop": loop_drain},
                       "bounded_1k_100k_default": {
                           "steady_s": default_s,
                           "rounds": sum(g.rounds for g in
                                         res_a.goal_results),
-                          "dispatch": stats_a,
+                          "dispatch": stats_a, "loop": loop_default,
                           "profiled_goal": dict(goal=PROFILED_GOAL, **busy)},
+                      "bounded_7k_1m_pinned": {
+                          "warmup_s": warm_7k_s, "steady_s": steady_7k,
+                          "rounds": rounds_7k,
+                          "dispatch": got_7k["dispatch_stats"],
+                          "assignment_equal": got_7k["assignment_sha256"]
+                          == ref_7k["assignment_sha256"],
+                          "leader_equal": got_7k["leader_slot_sha256"]
+                          == ref_7k["leader_slot_sha256"],
+                          "warmup_loop": warm_loop_7k, "loop": loop_7k,
+                          "swap_grid_ms": swap_grid_ms,
+                          "swap_sorts_ms": swap_sorts_ms},
                       "total_s": time.time() - t_start}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -154,13 +154,18 @@ def offline_per_broker(state: ClusterTensors) -> torch.Tensor:
 def _masked_add(target: torch.Tensor, index: torch.Tensor,
                 values: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     """``target.at[where(sel, index, OOB)].add(values, mode="drop")``:
-    unselected rows are dropped; on the CPU the rest add sequentially in
-    row order (on CUDA the accumulating ``index_put_`` sorts per index
-    instead of using float atomics, so the twin is at least
-    deterministic there)."""
-    rows = torch.nonzero(sel, as_tuple=True)[0]
-    return target.clone().index_put_((index[rows].long(),), values[rows],
-                                     accumulate=True)
+    unselected rows add into a pad row past the end, which is dropped, so
+    the scatter's shape does not depend on the selection; on the CPU the
+    rows add sequentially in row order (on CUDA the accumulating
+    ``index_put_`` sorts per index instead of using float atomics, so the
+    twin is at least deterministic there)."""
+    n = target.shape[0]
+    padded = torch.cat([target, target.new_zeros((1,) + tuple(
+        target.shape[1:]))])
+    rows = torch.where(sel, index.long(),
+                       torch.full((), n, dtype=torch.int64,
+                                  device=index.device))
+    return padded.index_put_((rows,), values, accumulate=True)[:n]
 
 
 def apply_deltas_to_agg_plain(agg: AggCarry, sub, sel: torch.Tensor,

@@ -168,7 +168,7 @@ def compute_deltas(state: ClusterTensors, derived: DerivedState,
 def on_source(state: ClusterTensors, source_score: torch.Tensor,
               ) -> torch.Tensor:
     """[P, S] bool — slot holds a replica on a positive-score broker."""
-    score_pad = torch.cat([source_score, source_score.new_tensor([-1.0])])
+    score_pad = torch.cat([source_score, source_score.new_full((1,), -1.0)])
     return (score_pad[broker_segments(state)] > 0.0) & replica_exists(state)
 
 
@@ -208,7 +208,7 @@ def select_sources_plain(state: ClusterTensors, source_score: torch.Tensor,
         return smax[:b], best[:b]
 
     w1, best1 = per_broker_best(flat_weight_rest)
-    best1_pad = torch.cat([best1, best1.new_tensor([n_flat])])
+    best1_pad = torch.cat([best1, best1.new_full((1,), n_flat)])
     w2, best2 = per_broker_best(torch.where(
         idxs == best1_pad[seg_flat], neg_inf, flat_weight_rest))
     b_score = torch.where(torch.isfinite(w1), source_score, neg_inf)

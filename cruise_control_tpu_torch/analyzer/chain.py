@@ -10,13 +10,16 @@ Port of the single-device parts of ``cruise_control_tpu/analyzer/chain.py``:
 JAX traces the chain once and switches on a traced goal index; here the
 active goal index and the prior-goal set are host values of a Python loop
 over the chain, so the reference's ``lax.switch`` over goals is plain
-indexing, its gated aux ``lax.cond`` is an ``if``, and its on-device
-``while_loop`` to the fixed point is a Python loop that reads one scalar
-(the round's applied count) back per round. In the fused driver the
-aggregate carry is computed at each goal's entry and refreshed every
-``REFRESH_EVERY`` rounds counted since the goal's entry, across its move
-and swap segments; a bounded dispatch computes it at its own entry and
-counts the refresh cadence from there, as the reference's megastep does.
+indexing and its gated aux ``lax.cond`` is an ``if``. Its on-device
+``while_loop`` to the fixed point (``run_carry_loop``) is the round loop
+below: blocks of ``ROUNDS_PER_BLOCK`` rounds carrying the early-exit flag
+on the device, captured as CUDA graphs on the card and run eagerly on
+the CPU, with one host read of (applied, rounds) a dispatch. On the fused
+path the aggregate carry is computed at each goal's entry and refreshed
+every ``REFRESH_EVERY`` rounds counted since the goal's entry, across its
+move and swap segments; a bounded dispatch computes it at its own entry
+and counts the refresh cadence from there, as the reference's megastep
+does.
 
 Reference semantics preserved: the lexicographic acceptance stack of
 AbstractGoal.maybeApplyBalancingAction:230-272 (every candidate must be
@@ -25,17 +28,21 @@ accepted by every previously-optimized goal).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
+import weakref
 from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
 from ..model.tensors import (
-    ClusterTensors, alive_mask, broker_segments, offline_replicas,
+    FIELDS, ClusterTensors, alive_mask, broker_segments, offline_replicas,
 )
+from ..utils import graphs
 from ..utils.numerics import VECTOR_SUM_LENGTHS, xla_sum, xla_vector_sum
+from . import agg as agg_mod
 from .agg import (
     AggCarry, apply_deltas_to_agg, compute_agg, maybe_refresh,
     offline_per_broker, pot_lbi_deltas,
@@ -51,6 +58,11 @@ from .search import (
     apply_selected, apply_swap_selection, cumulative_select, goal_aux,
     swap_grid,
 )
+
+
+# A swap pass's round cap (the reference's ``chain_swap_rounds``
+# default).
+SWAP_MAX_ROUNDS = 64
 
 
 class StatsRegressionError(RuntimeError):
@@ -99,10 +111,13 @@ def _chain_round_body(state: ClusterTensors, agg: AggCarry | None,
                       goals: tuple[Goal, ...],
                       constraint: BalancingConstraint, cfg: SearchConfig,
                       num_topics: int, masks: ExclusionMasks,
+                      live: torch.Tensor | None = None,
                       ) -> tuple[ClusterTensors, AggCarry | None,
                                  torch.Tensor]:
     """One search round for goal ``goals[active]`` under the acceptance of
-    every goal with ``prior[i]``. Returns (new_state, new_agg, applied)."""
+    every goal with ``prior[i]``. ``live`` (a bool scalar) gates the
+    selected batch: a frozen round of the round loop applies nothing.
+    Returns (new_state, new_agg, applied)."""
     goal = goals[active]
     dev = state.device
     derived = _derived(state, masks, agg)
@@ -190,6 +205,8 @@ def _chain_round_body(state: ClusterTensors, agg: AggCarry | None,
     top_idx, sel, sub, pot_d, lbi_d = cumulative_select(
         state, deltas, score, layout, m, cfg.moves_per_round, independent,
         recheck, extra_last_col=targets)
+    if live is not None:
+        sel = sel & live
     if agg is not None:
         agg = apply_deltas_to_agg(agg, sub, sel, pot_d, lbi_d)
     ti = top_idx.long()
@@ -204,9 +221,11 @@ def _chain_swap_body(state: ClusterTensors, agg: AggCarry | None,
                      goals: tuple[Goal, ...],
                      constraint: BalancingConstraint, num_topics: int,
                      masks: ExclusionMasks, moves: int = 8,
+                     live: torch.Tensor | None = None,
                      ) -> tuple[ClusterTensors, AggCarry | None,
                                 torch.Tensor]:
-    """One swap round for goal ``goals[active]``."""
+    """One swap round for goal ``goals[active]`` (``live`` as in
+    _chain_round_body)."""
     goal = goals[active]
     derived = _derived(state, masks, agg)
     aux_list = _aux_list(goals, active, prior, state, derived, constraint,
@@ -231,7 +250,7 @@ def _chain_swap_body(state: ClusterTensors, agg: AggCarry | None,
     score = torch.where(accept, imp,
                         torch.full((), float("-inf"), device=state.device))
     new_state, applied, top_idx, sel = apply_swap_selection(
-        state, score, p1, s1, p2, s2, src_b, dst_b, moves)
+        state, score, p1, s1, p2, s2, src_b, dst_b, moves, live)
     if agg is not None:
         for leg in (fwd, rev):
             leg_sub = leg.take(top_idx)
@@ -255,7 +274,8 @@ def chain_goal_stats(state: ClusterTensors, active: int,
     obj = g.objective(state, derived, constraint, aux).to(torch.float32)
     offline = offline_replicas(state).sum()
     host = torch.stack([viol, obj, offline.to(torch.float32)]).cpu()
-    return float(host[0]), float(host[1]), int(offline.item())
+    LOOP_STATS["stats_reads"] += 1
+    return float(host[0]), float(host[1]), int(host[2])
 
 
 def chain_all_violations(state: ClusterTensors, goals: tuple[Goal, ...],
@@ -294,16 +314,18 @@ def chain_all_goal_stats(state: ClusterTensors, goals: tuple[Goal, ...],
                      else xla_sum(per_broker, 0))
         objs.append(g.objective(state, derived, constraint, aux)
                     .to(torch.float32))
-    host = torch.stack(viols + objs).cpu().numpy()
+    offline = offline_replicas(state).sum().to(torch.float32)
+    host = torch.stack(viols + objs + [offline]).cpu().numpy()
+    LOOP_STATS["stats_reads"] += 1
     g_count = len(goals)
-    return (host[:g_count], host[g_count:],
-            int(offline_replicas(state).sum().item()))
+    return host[:g_count], host[g_count:2 * g_count], int(host[-1])
 
 
 def chain_optimize_full(state: ClusterTensors, goals: tuple[Goal, ...],
                         constraint: BalancingConstraint, cfg: SearchConfig,
                         num_topics: int, masks: ExclusionMasks,
-                        swap_moves: int = 8, swap_max_rounds: int = 64):
+                        swap_moves: int = 8,
+                        swap_max_rounds: int = SWAP_MAX_ROUNDS):
     """The whole goal chain: each goal runs its move loop to the fixed
     point and, for swap-capable goals, its swap loop, interleaved until a
     swap pass applies nothing, all under the acceptance of every earlier
@@ -326,30 +348,23 @@ def chain_optimize_full(state: ClusterTensors, goals: tuple[Goal, ...],
             state, g, goals, constraint, num_topics, masks)
         moves = swaps = rounds = 0
         if viol0 > 0 or offline0 > 0 or drain_pending(state):
+            # The carry is computed at the goal's entry; the refresh counts
+            # rounds from there across the goal's move and swap segments.
             agg = compute_agg(state, num_topics)
             first, last_swapped = True, 0
             while (first or last_swapped > 0) and rounds < cfg.max_rounds:
-                r, applied = 0, 1
-                while applied > 0 and r < cfg.max_rounds:
-                    agg = maybe_refresh(agg, state, num_topics, rounds + r)
-                    state, agg, n = _chain_round_body(
-                        state, agg, g, prior, goals, constraint, cfg,
-                        num_topics, masks)
-                    applied = int(n)
-                    moves += applied
-                    r += 1
+                state, agg, read = _dispatch(
+                    "move", state, g, prior, goals, constraint, num_topics,
+                    masks, cfg=cfg, agg=agg, age=rounds)
+                applied, r = read.values()
+                moves += applied
                 sw = sr = 0
                 if goal.supports_swap:
-                    applied = 1
-                    while applied > 0 and sr < swap_max_rounds:
-                        agg = maybe_refresh(agg, state, num_topics,
-                                            rounds + r + sr)
-                        state, agg, n = _chain_swap_body(
-                            state, agg, g, prior, goals, constraint,
-                            num_topics, masks, swap_moves)
-                        applied = int(n)
-                        sw += applied
-                        sr += 1
+                    state, agg, read = _dispatch(
+                        "swap", state, g, prior, goals, constraint,
+                        num_topics, masks, moves=swap_moves,
+                        max_rounds=swap_max_rounds, agg=agg, age=rounds + r)
+                    sw, sr = read.values()
                 swaps += sw
                 rounds += r + sr
                 last_swapped = sw
@@ -423,13 +438,358 @@ def _chain_infos_from_stats(goals: tuple[Goal, ...], stats: dict,
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# The round loop: the reference's ``run_carry_loop`` (search.py), its
+# early-exit flag kept on the device. A dispatch of budget b runs
+# ceil(b / K) blocks of K rounds and reads (applied, rounds) back once; on
+# the card each block is a captured CUDA graph replayed over static
+# buffers, on the CPU the same block runs eagerly.
+# ---------------------------------------------------------------------------
+
+# Rounds per block (K). A block runs all its rounds; once its pass has
+# converged the rest run frozen (they change nothing but cost their
+# device time), and on the card a dispatch stops at most one block after
+# the block in which it froze (one replay stays in flight). A small K
+# keeps that waste to a few rounds a dispatch; each replay still carries
+# thousands of device ops.
+ROUNDS_PER_BLOCK = 2
+
+# Round-loop accounting of the current solve (the optimizer resets it):
+# ``captures`` and ``capture_s`` (graphs captured, seconds including each
+# one's eager warm-up round), ``replays`` (card) or ``blocks`` (CPU),
+# ``dispatch_reads`` (one host read of (applied, rounds) a dispatch),
+# ``live_polls`` (host reads of the freeze flag between replays),
+# ``stats_reads`` (host reads of goal statistics), ``device_rounds`` (rounds
+# the blocks ran) and ``frozen_rounds`` (those of them that ran frozen).
+LOOP_STATS: collections.Counter = collections.Counter()
+
+
+@dataclasses.dataclass(frozen=True)
+class LoopCarry:
+    """The round loop's carry, the reference's ``(carry, total, rounds,
+    last_applied)``: ``state`` and ``agg``; ``live`` (bool), no round of
+    the dispatch has applied nothing yet (ANDed with ``rounds < cap`` at
+    each round's start); ``rounds`` and ``total`` (int32), the rounds run
+    and moves applied in the dispatch, which frozen rounds leave as they
+    are; ``cap`` (int32), the dispatch's round budget."""
+
+    state: ClusterTensors
+    agg: AggCarry
+    live: torch.Tensor
+    rounds: torch.Tensor
+    total: torch.Tensor
+    cap: torch.Tensor
+
+
+def _agg_fields(agg: AggCarry) -> list[torch.Tensor]:
+    return [getattr(agg, f.name) for f in dataclasses.fields(agg)]
+
+
+def carry_round(round_fn, c: LoopCarry, masks: ExclusionMasks,
+                num_topics: int, refresh: bool = False) -> LoopCarry:
+    """One round of the loop, in effect only while ``live``: the body runs
+    on every call, but a frozen round applies nothing (``round_fn`` gates
+    its batch with ``live``), skips the refresh and counts nothing, so it
+    leaves the carry bitwise as it was. ``refresh`` (chosen by the host,
+    see ``refresh_rounds``) recomputes the aggregate carry before the
+    body, as ``maybe_refresh`` does. No host sync, and every shape fixed
+    by the inputs' shapes."""
+    live = c.live & (c.rounds < c.cap)
+    agg = c.agg
+    if refresh:
+        agg = AggCarry(*(torch.where(live, f, a) for f, a in zip(
+            _agg_fields(compute_agg(c.state, num_topics)),
+            _agg_fields(agg))))
+    state, agg, applied = round_fn(c.state, agg, masks, live)
+    applied = applied.to(torch.int32)
+    return LoopCarry(state, agg, live & (applied > 0),
+                     c.rounds + live.to(torch.int32), c.total + applied,
+                     c.cap)
+
+
+def refresh_rounds(age: int, first: int, k: int) -> tuple[int, ...]:
+    """The rounds of a block of ``k`` whose first round is the dispatch's
+    round ``first`` that refresh the aggregate carry: those where
+    ``age + round`` is ``REFRESH_EVERY - 1`` modulo ``REFRESH_EVERY``
+    (``age``, rounds counted toward the refresh before the dispatch; the
+    fused path counts from the goal's entry). While a block is live its
+    rounds are the dispatch's rounds ``first`` to ``first + k - 1``, and
+    a frozen round refreshes nothing, so the host knows these rounds
+    without reading the device."""
+    every = agg_mod.REFRESH_EVERY
+    return tuple(r for r in range(k)
+                 if (age + first + r) % every == every - 1)
+
+
+def run_block(round_fn, c: LoopCarry, masks: ExclusionMasks,
+              num_topics: int, k: int | None = None,
+              refresh: tuple[int, ...] = ()) -> LoopCarry:
+    """``k`` (default ``ROUNDS_PER_BLOCK``) rounds of ``carry_round``,
+    those in ``refresh`` with the aggregate refresh: what one CUDA graph
+    captures, and what the CPU runs eagerly."""
+    for r in range(ROUNDS_PER_BLOCK if k is None else k):
+        c = carry_round(round_fn, c, masks, num_topics, r in refresh)
+    return c
+
+
+class LoopRead:
+    """A dispatch's (applied, rounds), read from the host once, when first
+    asked for; the read also books the dispatch's device and frozen
+    rounds into LOOP_STATS."""
+
+    def __init__(self, total: torch.Tensor, rounds: torch.Tensor,
+                 device_rounds: int):
+        self._read = graphs.HostRead(total, rounds)
+        self._device_rounds = device_rounds
+        self._values = None
+
+    def values(self) -> tuple[int, int]:
+        if self._values is None:
+            total, rounds = self._read.values()
+            LOOP_STATS["dispatch_reads"] += 1
+            LOOP_STATS["device_rounds"] += self._device_rounds
+            LOOP_STATS["frozen_rounds"] += self._device_rounds - rounds
+            self._values = (total, rounds)
+        return self._values
+
+
+class _StaticLoop:
+    """The static buffers of one shape (device, P, S, B, topics, masks)
+    and the block graphs captured over them, keyed by everything that
+    fixes a block's shapes and Python control flow. A dispatch copies its
+    state, aggregate carry and masks in (skipping a tensor it copied last
+    time and that is still alive, or one that is already the static
+    buffer), sets the scalars, replays, and hands back fresh copies of
+    the assignment and leader slots: a state a caller holds never aliases
+    a buffer that a later replay overwrites."""
+
+    def __init__(self, state: ClusterTensors, agg: AggCarry,
+                 masks: ExclusionMasks):
+        dev = state.device
+        self.state = ClusterTensors(**{f: torch.empty_like(getattr(state, f))
+                                       for f in FIELDS})
+        self.agg = AggCarry(*(torch.empty_like(x) for x in _agg_fields(agg)))
+        self.masks = ExclusionMasks(**{
+            f.name: None if getattr(masks, f.name) is None
+            else torch.empty_like(getattr(masks, f.name))
+            for f in dataclasses.fields(masks)})
+        self.live = torch.ones((), dtype=torch.bool, device=dev)
+        self.rounds, self.total, self.cap = (
+            torch.zeros((), dtype=torch.int32, device=dev) for _ in range(3))
+        self.graphs: dict = {}
+        # Buffer name -> weak reference to the tensor last copied in: the
+        # loop never keeps a caller's tensor alive.
+        self._loaded: dict = {}
+
+    def _buffers(self, state, agg, masks):
+        yield from ((f, getattr(state, f), getattr(self.state, f))
+                    for f in FIELDS)
+        yield from ((f"agg.{i}", a, b) for i, (a, b) in enumerate(
+            zip(_agg_fields(agg), _agg_fields(self.agg))))
+        yield from ((f"masks.{f.name}", getattr(masks, f.name),
+                     getattr(self.masks, f.name))
+                    for f in dataclasses.fields(masks))
+
+    def load(self, state: ClusterTensors, agg: AggCarry,
+             masks: ExclusionMasks, cap: int) -> None:
+        for name, src, dst in self._buffers(state, agg, masks):
+            last = self._loaded.get(name)
+            if src is None or src is dst or (last is not None
+                                             and last() is src):
+                continue
+            dst.copy_(src)
+            self._loaded[name] = weakref.ref(src)
+        self.live.fill_(True)
+        self.rounds.zero_()
+        self.total.zero_()
+        self.cap.fill_(cap)
+
+    def carry(self) -> LoopCarry:
+        return LoopCarry(self.state, self.agg, self.live, self.rounds,
+                         self.total, self.cap)
+
+    def store(self, out: LoopCarry) -> None:
+        self.state.assignment.copy_(out.state.assignment)
+        self.state.leader_slot.copy_(out.state.leader_slot)
+        for dst, src in zip(_agg_fields(self.agg), _agg_fields(out.agg)):
+            dst.copy_(src)
+        for dst, src in ((self.live, out.live), (self.rounds, out.rounds),
+                         (self.total, out.total)):
+            dst.copy_(src)
+
+    def graph(self, key, round_fn, num_topics: int,
+              refresh: tuple[int, ...] = ()) -> graphs.Graph:
+        """The block graph of ``key`` with the aggregate refresh on the
+        block's rounds ``refresh``, captured on first use after one round
+        run eagerly on the static carry, its result discarded (it loads
+        the kernels' libraries and PyTorch's lazily built state outside
+        the capture)."""
+        g = self.graphs.get((key, refresh))
+        if g is None:
+            t0 = time.perf_counter()
+            carry_round(round_fn, self.carry(), self.masks, num_topics,
+                        bool(refresh))
+
+            def block():
+                self.store(run_block(round_fn, self.carry(), self.masks,
+                                     num_topics, refresh=refresh))
+
+            g = graphs.capture(block, self.state.device)
+            self.graphs[key, refresh] = g
+            LOOP_STATS["captures"] += 1
+            LOOP_STATS["capture_s"] += time.perf_counter() - t0
+        return g
+
+    def result(self, state: ClusterTensors) -> ClusterTensors:
+        out = dataclasses.replace(
+            state, assignment=self.state.assignment.clone(),
+            leader_slot=self.state.leader_slot.clone())
+        self._loaded["assignment"] = weakref.ref(out.assignment)
+        self._loaded["leader_slot"] = weakref.ref(out.leader_slot)
+        return out
+
+
+# The static loop of the last shape solved, under its key. A new shape
+# drops the old one with its graphs: a cluster whose partition or topic
+# count changes between solves keeps one shape's buffers on the card,
+# not one per shape it ever had.
+_LOOPS: dict = {}
+
+
+def _static_loop(state: ClusterTensors, agg: AggCarry,
+                 masks: ExclusionMasks) -> _StaticLoop:
+    key = (state.device, tuple(state.assignment.shape), state.num_brokers,
+           tuple(agg.topic_counts.shape),
+           tuple(None if getattr(masks, f.name) is None
+                 else tuple(getattr(masks, f.name).shape)
+                 for f in dataclasses.fields(masks)))
+    loop = _LOOPS.get(key)
+    if loop is None:
+        _LOOPS.clear()
+        loop = _LOOPS[key] = _StaticLoop(state, agg, masks)
+    return loop
+
+
+def clear_graphs() -> None:
+    """Drop the captured block graphs and their static buffers (they are
+    kept across solves of one shape, so a steady solve captures
+    nothing)."""
+    _LOOPS.clear()
+
+
+def run_rounds(key, round_fn, state: ClusterTensors, agg: AggCarry,
+               masks: ExclusionMasks, num_topics: int, cap: int,
+               age: int = 0, reach: int | None = None,
+               ) -> tuple[ClusterTensors, AggCarry, LoopRead]:
+    """Rounds of ``round_fn(state, agg, masks, live) -> (state, agg,
+    applied)`` from (``state``, ``agg``) until one applies nothing or
+    ``cap`` rounds ran: ceil(cap / K) blocks at most, then one host read.
+    ``age`` counts rounds toward the aggregate refresh before the
+    dispatch (``refresh_rounds``).
+
+    On a CUDA device each block is a graph of ``key`` (``key`` must name
+    everything that fixes ``round_fn``'s shapes and control flow; the
+    block's refresh rounds pick the variant), replayed over static
+    buffers. The variants that a dispatch of ``key`` at this ``age`` and
+    up to ``reach`` rounds (default ``cap``) could replay are captured
+    together when the first of them is missing, so a later dispatch
+    given a larger budget (the adaptive dispatch grows) captures
+    nothing. Between replays of a dispatch of three or more blocks the
+    host polls ``live`` one block behind, keeping one replay in flight,
+    and stops once a block ended frozen. A capture or replay failure
+    raises; nothing runs the rounds eagerly on the card. On the CPU the
+    blocks run eagerly, and the host reads ``live`` after each. Returns
+    (state, agg, the dispatch's LoopRead)."""
+    k = ROUNDS_PER_BLOCK
+    blocks = max(0, -(-int(cap) // k))
+    dev = state.device
+    if dev.type == "cpu":
+        zero = torch.zeros((), dtype=torch.int32)
+        c = LoopCarry(state, agg, torch.ones((), dtype=torch.bool), zero,
+                      zero, zero + int(cap))
+        ran = 0
+        while ran < blocks:
+            c = run_block(round_fn, c, masks, num_topics,
+                          refresh=refresh_rounds(age, k * ran, k))
+            ran += 1
+            if not bool(c.live):
+                break
+        LOOP_STATS["blocks"] += ran
+        return c.state, c.agg, LoopRead(c.total, c.rounds, ran * k)
+    if dev.type != "cuda":
+        raise ValueError(f"run_rounds: unsupported device {dev}")
+    loop = _static_loop(state, agg, masks)
+    loop.load(state, agg, masks, int(cap))
+    # (age + k*j) % REFRESH_EVERY repeats within REFRESH_EVERY blocks.
+    reach_blocks = -(-max(int(cap), int(reach or 0)) // k)
+    for refresh in sorted({refresh_rounds(age, k * j, k) for j in range(
+            min(reach_blocks, agg_mod.REFRESH_EVERY))}):
+        loop.graph(key, round_fn, num_topics, refresh)
+    flags = {}
+    ran = 0
+    while ran < blocks:
+        loop.graph(key, round_fn, num_topics,
+                   refresh_rounds(age, k * ran, k)).replay()
+        ran += 1
+        j = ran - 1
+        if j + 2 < blocks:
+            flags[j] = graphs.HostRead(loop.live)
+        if j >= 1 and j + 1 < blocks:
+            LOOP_STATS["live_polls"] += 1
+            if not flags.pop(j - 1).values()[0]:
+                break
+    LOOP_STATS["replays"] += ran
+    read = LoopRead(loop.total, loop.rounds, ran * k)
+    return loop.result(state), loop.agg, read
+
+
+def _dispatch(phase: str, state: ClusterTensors, active: int,
+              prior: Sequence[bool], goals: tuple[Goal, ...],
+              constraint: BalancingConstraint, num_topics: int,
+              masks: ExclusionMasks, budget: int | None = None,
+              cfg: SearchConfig | None = None, moves: int = 8,
+              max_rounds: int = SWAP_MAX_ROUNDS,
+              agg: AggCarry | None = None, age: int = 0,
+              reach: int | None = None,
+              ) -> tuple[ClusterTensors, AggCarry, LoopRead]:
+    """One dispatch of goal ``goals[active]``'s move or swap rounds
+    (``phase``): at most ``budget`` rounds and the phase's cap
+    (``cfg.max_rounds`` for moves, ``max_rounds`` for swaps). ``reach``
+    is the largest budget a dispatch of this pass may be given
+    (``run_rounds``). The aggregate carry is computed at entry unless
+    given."""
+    prior = tuple(bool(p) for p in prior)
+    if phase == "move":
+        def round_fn(s, a, m, live):
+            return _chain_round_body(s, a, active, prior, goals, constraint,
+                                     cfg, num_topics, m, live)
+        key = ("move", active, prior, goals, constraint, cfg, num_topics,
+               targets_enabled(state.num_partitions))
+        cap = cfg.max_rounds
+    else:
+        def round_fn(s, a, m, live):
+            return _chain_swap_body(s, a, active, prior, goals, constraint,
+                                    num_topics, m, moves, live)
+        key = ("swap", active, prior, goals, constraint, num_topics, moves)
+        cap = max_rounds
+    if reach is not None:
+        reach = min(cap, int(reach))
+    if budget is not None:
+        cap = min(cap, int(budget))
+    if agg is None:
+        agg = compute_agg(state, num_topics)
+    return run_rounds(key, round_fn, state, agg, masks, num_topics, cap, age,
+                      reach)
+
+
 def _carry_loop(round_fn, state: ClusterTensors, num_topics: int, cap: int,
                 ) -> tuple[ClusterTensors, int, int]:
-    """Rounds of ``round_fn(state, agg) -> (state, agg, applied)`` until
-    one applies nothing or ``cap`` rounds ran, with the aggregate carry
-    computed at entry and refreshed every ``REFRESH_EVERY`` rounds of this
-    call (the reference's ``run_carry_loop`` under one dispatch). Returns
-    (state, total applied, rounds run)."""
+    """The per-round loop the block loop replaced, kept as its
+    reference in the tests: rounds of ``round_fn(state, agg) -> (state,
+    agg, applied)`` read back one at a time, until one applies nothing or
+    ``cap`` rounds ran, the aggregate carry computed at entry and
+    refreshed by ``maybe_refresh``. Returns (state, total applied,
+    rounds run)."""
     agg = compute_agg(state, num_topics)
     total = rounds = 0
     applied = 1
@@ -451,27 +811,25 @@ def chain_optimize_rounds(state: ClusterTensors, active: int,
     """One move dispatch for goal ``goals[active]``: rounds to the fixed
     point, at most ``cfg.max_rounds`` and ``budget``. Returns
     (state, moves, rounds)."""
-    cap = cfg.max_rounds if budget is None else min(cfg.max_rounds,
-                                                    int(budget))
-    return _carry_loop(
-        lambda s, a: _chain_round_body(s, a, active, prior, goals,
-                                       constraint, cfg, num_topics, masks),
-        state, num_topics, cap)
+    state, _agg, read = _dispatch(
+        "move", state, active, prior, goals, constraint, num_topics, masks,
+        budget, cfg=cfg)
+    return (state, *read.values())
 
 
 def chain_swap_rounds(state: ClusterTensors, active: int,
                       prior: Sequence[bool], goals: tuple[Goal, ...],
                       constraint: BalancingConstraint, num_topics: int,
                       masks: ExclusionMasks, moves: int = 8,
-                      max_rounds: int = 64, budget: int | None = None,
+                      max_rounds: int = SWAP_MAX_ROUNDS,
+                      budget: int | None = None,
                       ) -> tuple[ClusterTensors, int, int]:
     """One swap dispatch for goal ``goals[active]`` (see
     chain_optimize_rounds). Returns (state, swaps, rounds)."""
-    cap = max_rounds if budget is None else min(max_rounds, int(budget))
-    return _carry_loop(
-        lambda s, a: _chain_swap_body(s, a, active, prior, goals, constraint,
-                                      num_topics, masks, moves),
-        state, num_topics, cap)
+    state, _agg, read = _dispatch(
+        "swap", state, active, prior, goals, constraint, num_topics, masks,
+        budget, moves=moves, max_rounds=max_rounds)
+    return (state, *read.values())
 
 
 class AdaptiveDispatch:
@@ -491,6 +849,10 @@ class AdaptiveDispatch:
 
     def budget(self, remaining: int) -> int:
         return min(self.k, remaining)
+
+    def ceiling(self) -> int:
+        """The largest budget this controller can ever give."""
+        return self.k if self._target_s <= 0 else self.MAX_ROUNDS
 
     def observe(self, rounds_run: int, budget: int, elapsed_s: float) -> None:
         if self._target_s <= 0 or rounds_run < budget:
@@ -619,8 +981,10 @@ def run_bounded_pass(enqueue: Callable, st, pass_cap: int,
     """One logical pass (a fixed-point loop of at most ``pass_cap`` rounds)
     as a sequence of bounded dispatches.
 
-    ``enqueue(st, budget) -> (st, applied, rounds, donated)`` runs one
-    dispatch. With ``async_readback`` the pump keeps one dispatch ahead:
+    ``enqueue(st, budget) -> (st, read, donated)`` runs one dispatch;
+    ``read.values()`` gives its (applied, rounds), waiting for the device
+    (a ``LoopRead``). With ``async_readback`` the pump keeps one dispatch
+    ahead:
     dispatch N+1 is enqueued, budgeted as if N ran its whole budget (so it
     can never overshoot ``pass_cap``), before N's scalars are read and the
     controller observes N. A dispatch that ran fewer rounds than its
@@ -631,7 +995,7 @@ def run_bounded_pass(enqueue: Callable, st, pass_cap: int,
     applied_total = 0
     pass_rounds = 0
     est_rounds = 0
-    prev = None    # (applied, rounds, budget, t0, donated), not yet read
+    prev = None    # (read, budget, t0, donated), not yet read
     last_read_t = None
     converged = False
     while True:
@@ -641,15 +1005,15 @@ def run_bounded_pass(enqueue: Callable, st, pass_cap: int,
                 and not (out_of_time is not None and out_of_time()):
             budget = controller.budget(pass_cap - est_rounds)
             t0 = time.monotonic()
-            st, applied, r, donated = enqueue(st, budget)
-            cur = (applied, r, budget, t0, donated)
+            st, read, donated = enqueue(st, budget)
+            cur = (read, budget, t0, donated)
             est_rounds += budget
         if prev is not None:
-            applied_p, r_p, budget_p, t0_p, donated_p = prev
-            r_read = int(r_p)
+            read_p, budget_p, t0_p, donated_p = prev
+            applied_p, r_read = read_p.values()
             now = time.monotonic()
             start = t0_p if last_read_t is None else max(t0_p, last_read_t)
-            applied_total += int(applied_p)
+            applied_total += applied_p
             controller.observe(r_read, budget_p, now - start)
             last_read_t = now
             if stats is not None:
@@ -660,7 +1024,7 @@ def run_bounded_pass(enqueue: Callable, st, pass_cap: int,
                 converged = True
         if converged and cur is not None:
             if stats is not None:
-                stats.record(kind, int(cur[1]), donated=cur[4],
+                stats.record(kind, cur[0].values()[1], donated=cur[3],
                              speculative=True)
             cur = None
         prev = cur
@@ -746,15 +1110,11 @@ def optimize_goal_in_chain(state: ClusterTensors, chain: Sequence[Goal],
             return st, applied, r
 
         def enqueue(st, budget: int):
-            if phase == "move":
-                st, applied, r = chain_optimize_rounds(
-                    st, index, prior, goals, constraint, cfg, num_topics,
-                    masks, budget=budget)
-            else:
-                st, applied, r = chain_swap_rounds(
-                    st, index, prior, goals, constraint, num_topics, masks,
-                    budget=budget)
-            return st, applied, r, donation_enabled(megastep)
+            # The pump reads the dispatch's (applied, rounds) one behind.
+            st, _agg, read = _dispatch(phase, st, index, prior, goals,
+                                       constraint, num_topics, masks, budget,
+                                       cfg=cfg, reach=dispatch.ceiling())
+            return st, read, donation_enabled(megastep)
 
         return run_bounded_pass(
             enqueue, st, pass_cap, dispatch,
@@ -773,7 +1133,7 @@ def optimize_goal_in_chain(state: ClusterTensors, chain: Sequence[Goal],
             rounds += r
             if not goal.supports_swap:
                 break
-            state, swapped, sr = run_pass("swap", state, 64)
+            state, swapped, sr = run_pass("swap", state, SWAP_MAX_ROUNDS)
             total_swaps += swapped
             total_applied += swapped
             rounds += sr

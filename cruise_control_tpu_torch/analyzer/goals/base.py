@@ -15,7 +15,7 @@ from typing import Any
 import torch
 
 from ...model.tensors import ClusterTensors, replica_load_total
-from ...utils.numerics import xla_sum
+from ...utils.numerics import fma_f32, xla_sum
 from ..candidates import CandidateDeltas
 from ..constraint import BalancingConstraint
 from ..derived import DerivedState
@@ -143,15 +143,24 @@ def pair_improvement(values: torch.Tensor, deltas: CandidateDeltas,
 
 
 def donor_widened_shed(values: torch.Tensor, lower, upper,
-                       derived: DerivedState) -> torch.Tensor:
+                       derived: DerivedState, cap=None) -> torch.Tensor:
     """Per-broker shed pressure with donor widening
     (ResourceDistributionGoal.java:388 requireMoreLoad); masked to alive
-    brokers."""
+    brokers. With ``cap`` the band is ``lower * cap`` to ``upper * cap``
+    and each difference from it is rounded once, as the reference's fused
+    loop contracts it into a multiply-add (``fma_f32``)."""
     eligible = derived.alive & derived.allowed_replica_move
-    under_any = ((values < lower) & eligible).any(dim=-1, keepdim=True)
+    if cap is None:
+        lower_abs = lower
+        over, donor = values - upper, values - lower
+    else:
+        lower_abs = lower * cap
+        over = fma_f32(-upper, cap, values)
+        donor = fma_f32(-lower, cap, values)
+    under_any = ((values < lower_abs) & eligible).any(dim=-1, keepdim=True)
     zero = fzero(values)
-    over = torch.clamp(values - upper, min=0.0)
-    donor = torch.where(under_any, torch.clamp(values - lower, min=0.0), zero)
+    over = torch.clamp(over, min=0.0)
+    donor = torch.where(under_any, torch.clamp(donor, min=0.0), zero)
     return torch.where(derived.alive, over + donor, zero)
 
 

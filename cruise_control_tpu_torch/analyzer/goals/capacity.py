@@ -12,6 +12,7 @@ import torch
 
 from ...common.resources import Resource
 from ...model.tensors import replica_load_column, replica_load_total
+from ...utils.numerics import fma_f32
 from ..candidates import CandidateDeltas
 from ..derived import over_capacity
 from .base import Goal, fzero, neg_inf, pair_improvement
@@ -55,8 +56,11 @@ class ResourceCapacityGoal(Goal):
                                 deltas.load_delta[:, r], viol)
 
     def dest_score(self, state, derived, constraint, aux):
-        limit = self._limit(state, constraint)
-        headroom = limit - derived.broker_load[:, int(self.resource)]
+        # ``limit - load`` rounded once: the reference's fused loop
+        # contracts the threshold product into a multiply-add (fma_f32).
+        r = int(self.resource)
+        headroom = fma_f32(constraint.capacity_threshold[r],
+                           state.capacity[:, r], -derived.broker_load[:, r])
         return torch.where(derived.allowed_replica_move, headroom,
                            neg_inf(headroom))
 

@@ -20,11 +20,12 @@ from ...model.tensors import (
     broker_segments, is_leader_slot, replica_exists,
     replica_load_column, replica_load_total, topic_broker_replica_counts,
 )
-from ...utils.numerics import xla_sum
+from ...utils.numerics import fma_f32, xla_sum
 from ..agg import compute_agg
 from ..candidates import CandidateDeltas
 from ..derived import (
-    band_violation, count_limits, over_capacity, resource_limits,
+    band_factors, band_violation, count_limits, over_capacity,
+    resource_limits,
 )
 from ..fill import (
     best_fit_dests, deficit_fill_dests, exclusive_rank, rank_within_group,
@@ -58,8 +59,16 @@ def _int_deficit_headroom(counts, lower, upper):
     return d_pos, h_int - d_pos
 
 
+def _var_diff(gap, d):
+    """gap² - (gap - 2d)², the first product fused into the subtraction as
+    the reference's loop contracts it (fma_f32); exact on counts. The
+    variance gain is 1e-6 times it."""
+    rest = gap - 2 * d
+    return fma_f32(gap, gap, -(rest * rest))
+
+
 def _var_gain(gap, d):
-    return (gap ** 2 - (gap - 2 * d) ** 2) * 1e-6
+    return _var_diff(gap, d) * 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,24 +133,32 @@ class ResourceDistributionGoal(Goal):
                            imp + torch.where(imp > 0, var_gain, fzero(imp)),
                            neg_inf(imp)) * new_broker_gate(derived, deltas)
 
+    # The per-broker scores below round each band difference (and the
+    # dest score's bonus sum) once: the reference's per-broker loops
+    # contract them into multiply-adds (fma_f32). Its per-candidate
+    # improvement and acceptance read the band from memory, unfused.
+
     def source_score(self, state, derived, constraint, aux):
         r = int(self.resource)
-        lower, upper, _cap = self._limits(state, derived, constraint)
-        shed = donor_widened_shed(derived.broker_load[:, r], lower, upper,
-                                  derived)
+        lo_f, up_f, cap = band_factors(state, derived, constraint,
+                                       self.resource)
+        shed = donor_widened_shed(derived.broker_load[:, r], lo_f, up_f,
+                                  derived, cap=cap)
         return torch.where(self._low_util(derived, constraint), fzero(shed),
                            shed)
 
     def dest_score(self, state, derived, constraint, aux):
         r = int(self.resource)
-        lower, upper, _cap = self._limits(state, derived, constraint)
+        lo_f, up_f, cap = band_factors(state, derived, constraint,
+                                       self.resource)
         load = derived.broker_load[:, r]
-        headroom = upper - load
-        under_bonus = torch.clamp(lower - load, min=0.0) * 10.0
+        headroom = fma_f32(up_f, cap, -load)
+        under = torch.clamp(fma_f32(lo_f, cap, -load), min=0.0)
         has_new = derived.new_brokers.any()
         eligible = torch.where(has_new, derived.new_brokers,
                                derived.allowed_replica_move)
-        return torch.where(eligible & (headroom > 0), headroom + under_bonus,
+        return torch.where(eligible & (headroom > 0),
+                           fma_f32(under, 10.0, headroom),
                            neg_inf(headroom))
 
     def replica_weight(self, state, derived, constraint, aux):
@@ -149,12 +166,13 @@ class ResourceDistributionGoal(Goal):
         # their own broker's surplus above its lower band rank first.
         r = int(self.resource)
         size = replica_load_column(state, r)
-        lower, upper, _cap = self._limits(state, derived, constraint)
+        lo_f, up_f, cap = band_factors(state, derived, constraint,
+                                       self.resource)
         load = derived.broker_load[:, r]
-        headroom = upper - load
+        headroom = fma_f32(up_f, cap, -load)
         elig = _dest_eligible(derived) & (headroom > 0)
         max_gap = torch.where(elig, headroom, fzero(headroom)).max()
-        src_room = torch.cat([load - lower, load.new_zeros(1)])[
+        src_room = torch.cat([fma_f32(-lo_f, cap, load), load.new_zeros(1)])[
             broker_segments(state)]
         peak = size.max() + 1.0
         fits = (size <= max_gap) & (size <= src_room) & (size > 0)
@@ -481,8 +499,10 @@ class LeaderBytesInDistributionGoal(Goal):
         imp = pair_improvement(aux["lbi"], deltas, d, viol)
         lbi = aux["lbi"]
         src, dst = deltas.src_broker.long(), deltas.dst_broker.long()
-        var_gain = _var_gain(lbi[src] - lbi[dst], d)
-        return torch.where(deltas.valid, imp + var_gain, neg_inf(imp))
+        # The gain's scaling is fused into the sum here (no select between
+        # them, unlike the other goals).
+        with_gain = fma_f32(_var_diff(lbi[src] - lbi[dst], d), 1e-6, imp)
+        return torch.where(deltas.valid, with_gain, neg_inf(imp))
 
     def dest_score(self, state, derived, constraint, aux):
         headroom = self._upper(aux, constraint) - aux["lbi"]

@@ -30,7 +30,7 @@ from ..model.tensors import ClusterMeta, ClusterTensors
 from ..utils.device import resolve_device
 from ..warmstart import violation_fingerprint
 from .chain import (
-    AdaptiveDispatch, DispatchStats, MegastepConfig, _not_ported,
+    LOOP_STATS, AdaptiveDispatch, DispatchStats, MegastepConfig, _not_ported,
     chain_all_goal_stats, excluded_hosting_replicas, optimize_chain,
     optimize_goal_in_chain,
 )
@@ -174,6 +174,7 @@ class GoalOptimizer:
         # the next pass of the same shape.
         self._controllers: dict = {}
         self._dispatch_stats: DispatchStats | None = None
+        self._loop_stats: dict = {}
 
     def last_dispatch_stats(self) -> dict:
         """Dispatch accounting of the last pass: dispatch_count,
@@ -182,6 +183,16 @@ class GoalOptimizer:
         before any pass."""
         return self._dispatch_stats.as_dict() if self._dispatch_stats \
             else {}
+
+    def last_loop_stats(self) -> dict:
+        """Round-loop accounting of the last solve (``chain.LOOP_STATS``):
+        graphs captured and their seconds, replays, host reads (one per
+        dispatch, the freeze-flag polls, the goal statistics), rounds run
+        on the device and how many of them ran frozen. The block graphs
+        of the last shape solved are kept across solves and optimizers
+        (``chain.clear_graphs`` drops them), so a steady solve captures
+        nothing. Empty before any solve."""
+        return dict(self._loop_stats)
 
     def _controller_pair(self, state: ClusterTensors):
         """(narrow, wide) persistent AdaptiveDispatch pair for this model
@@ -391,6 +402,7 @@ class GoalOptimizer:
         stats_before = cluster_stats(state)
         stats = DispatchStats()
         self._dispatch_stats = stats
+        LOOP_STATS.clear()
         megastep = self._megastep_config(state.num_brokers)
 
         if self._fused_chain and not fast and (
@@ -408,6 +420,7 @@ class GoalOptimizer:
             final, goal_results = self._bounded_chain(
                 state, meta, goal_chain, masks, search_cfg, megastep,
                 stats, fast, fast_budget_s)
+        self._loop_stats = dict(LOOP_STATS)
         violated_before = [r.name for r in goal_results if r.violated_before]
         violated_after = [r.name for r in goal_results if not r.succeeded]
         stats_after = cluster_stats(final)

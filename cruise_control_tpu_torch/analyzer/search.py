@@ -215,22 +215,35 @@ def cumulative_select(state: ClusterTensors, deltas: CandidateDeltas,
     return idx, sel, sub, pot, lbi
 
 
+def _padded(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with one pad row after its last: the target of every
+    unselected row of a fixed-shape scatter, dropped by the caller's
+    ``[:n]`` view."""
+    return torch.cat([x, x.new_full((1,) + tuple(x.shape[1:]), -1)])
+
+
 def apply_selected(state: ClusterTensors, sel: torch.Tensor,
                    sel_p: torch.Tensor, sel_slot: torch.Tensor,
                    sel_dst_b: torch.Tensor, sel_kind: torch.Tensor,
                    sel_dst_slot: torch.Tensor) -> ClusterTensors:
-    """Apply a selected batch. Unselected rows are masked out (the
-    reference routes them out of bounds, where its scatter drops them)."""
+    """Apply a selected batch. The reference routes unselected rows out
+    of bounds, where its scatter drops them; here they land in a pad row
+    (partition P) of a [P+1, S] buffer whose [:P] view is the new state,
+    so the scatter's shape does not depend on the selection. Selected
+    rows name distinct partitions (the batch is deduped by partition), so
+    no two writes meet outside the pad row."""
+    p = state.num_partitions
+    pad = torch.full((), p, dtype=torch.int64, device=state.device)
     is_move = sel_kind == KIND_MOVE
-    mv = torch.nonzero(sel & is_move, as_tuple=True)[0]
-    assignment = state.assignment.clone()
-    assignment[sel_p[mv].long(), sel_slot[mv].long()] = \
-        sel_dst_b[mv].to(assignment.dtype)
-    ld = torch.nonzero(sel & ~is_move, as_tuple=True)[0]
-    leader = state.leader_slot.clone()
-    leader[sel_p[ld].long()] = sel_dst_slot[ld].to(leader.dtype)
-    return dataclasses.replace(state, assignment=assignment,
-                               leader_slot=leader)
+    assignment = _padded(state.assignment)
+    assignment.index_put_(
+        (torch.where(sel & is_move, sel_p.long(), pad), sel_slot.long()),
+        sel_dst_b.to(assignment.dtype))
+    leader = _padded(state.leader_slot)
+    leader.index_put_((torch.where(sel & ~is_move, sel_p.long(), pad),),
+                      sel_dst_slot.to(leader.dtype))
+    return dataclasses.replace(state, assignment=assignment[:p],
+                               leader_slot=leader[:p])
 
 
 def _per_broker_top_replicas(state: ClusterTensors, weight: torch.Tensor,
@@ -335,10 +348,12 @@ def apply_swap_selection(state: ClusterTensors, score: torch.Tensor,
                          p1: torch.Tensor, s1: torch.Tensor,
                          p2: torch.Tensor, s2: torch.Tensor,
                          src_b: torch.Tensor, dst_b: torch.Tensor,
-                         moves: int = 8):
+                         moves: int = 8, live: torch.Tensor | None = None):
     """Select and apply a conflict-free batch of scored swaps: no two
     accepted swaps share any partition or any broker, across roles.
-    Returns (new_state, num_applied, top_idx, sel)."""
+    ``live`` (a bool scalar) gates the whole batch: a frozen round of the
+    round loop selects nothing. Unselected rows write the pad row, as in
+    apply_selected. Returns (new_state, num_applied, top_idx, sel)."""
     dev = state.device
     k = min(moves, score.shape[0])
     top_score, top_idx = stable_topk(score, k)
@@ -359,12 +374,15 @@ def apply_swap_selection(state: ClusterTensors, score: torch.Tensor,
         .scatter_reduce(0, sel_dst, rank_eff, "amin")
     sel = ok & (first_part[sel_p1] == rank) & (first_part[sel_p2] == rank) \
         & (first_broker[sel_src] == rank) & (first_broker[sel_dst] == rank)
+    if live is not None:
+        sel = sel & live
 
-    rows = torch.nonzero(sel, as_tuple=True)[0]
-    assignment = state.assignment.clone()
-    assignment[sel_p1[rows], s1[ti][rows].long()] = \
-        dst_b[ti][rows].to(assignment.dtype)
-    assignment[sel_p2[rows], s2[ti][rows].long()] = \
-        src_b[ti][rows].to(assignment.dtype)
-    return (dataclasses.replace(state, assignment=assignment), sel.sum(),
+    p = state.num_partitions
+    pad = torch.full((), p, dtype=torch.int64, device=dev)
+    assignment = _padded(state.assignment)
+    assignment.index_put_((torch.where(sel, sel_p1, pad), s1[ti].long()),
+                          dst_b[ti].to(assignment.dtype))
+    assignment.index_put_((torch.where(sel, sel_p2, pad), s2[ti].long()),
+                          src_b[ti].to(assignment.dtype))
+    return (dataclasses.replace(state, assignment=assignment[:p]), sel.sum(),
             top_idx, sel)

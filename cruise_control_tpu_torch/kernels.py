@@ -10,7 +10,11 @@ given, allocates nothing, never synchronises, and returns
 ``LAUNCHES`` counts, per kernel name, the wrapper calls that launched the
 kernel (never the plain-PyTorch twin); a run resets it to show that its
 path went through the kernels. K1's two modes count apart:
-``segment_reduce`` (full) and ``segment_reduce_offline``.
+``segment_reduce`` (full) and ``segment_reduce_offline``. A wrapper
+called while a CUDA graph captures launches nothing then: the capture
+(``utils/graphs.py``) takes those calls out of ``LAUNCHES``, keeps them as
+the graph's launches and adds them back at every replay, so the counts
+stay true under replay.
 """
 
 from __future__ import annotations

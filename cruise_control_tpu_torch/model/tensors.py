@@ -243,7 +243,7 @@ def rack_partition_counts(state: ClusterTensors,
                           num_racks: int) -> torch.Tensor:
     """[P, K] int32 — replicas of each partition per rack."""
     exists = replica_exists(state)
-    broker_rack = torch.cat([state.rack, state.rack.new_tensor([num_racks])])
+    broker_rack = torch.cat([state.rack, state.rack.new_full((1,), num_racks)])
     slot_rack = broker_rack[broker_segments(state)]
     racks = torch.arange(num_racks, dtype=slot_rack.dtype, device=state.device)
     one_hot = (slot_rack[:, :, None] == racks[None, None, :]) & exists[:, :, None]

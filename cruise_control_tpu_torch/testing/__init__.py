@@ -3,11 +3,13 @@
 ``reference_outcomes.json`` holds the JAX package's CPU outcomes of
 ``GoalOptimizer.optimizations`` on named fixtures (the ``bench.py``
 ``_run_stage`` recipe at 1,000 brokers / 100k partitions, healthy and with
-its last 50 brokers DEAD), regenerated and checked by
+its last 50 brokers DEAD, and at 7,000 brokers / 1M partitions), regenerated
+and checked by
 ``tests/test_torch_reference_outcomes.py``. ``chip_smoke.py`` holds the
 port's card run against them without importing JAX. The module also
 holds what the card checks and the tests share: the kernels' adversarial
-inputs and the CUDA-graph capture that counts a call's launches.
+inputs, the swap grid's inputs and the CUDA-graph capture that counts a
+call's launches.
 
 :func:`outcome` summarises a solve in the file's form. It reads only the
 attributes both packages' ``OptimizerResult`` share and numpy copies of
@@ -277,6 +279,31 @@ def k2_round_inputs(state, num_topics: int,
                              torch.full((), 1e30, device=state.device),
                              weight)
     return score, weight
+
+
+def swap_grid_inputs(state, num_topics: int,
+                     goal_name: str = "DiskUsageDistributionGoal"):
+    """``(derived, source_score, swap_dest_score, replica_weight)`` as the
+    chain's swap round builds them for ``goal_name`` on ``state``
+    (``analyzer/chain.py::_chain_swap_body``): the inputs of
+    ``search.swap_grid``."""
+    import torch
+
+    from ..analyzer.constraint import BalancingConstraint
+    from ..analyzer.derived import compute_derived
+    from ..analyzer.goals import ALL_GOALS
+    from ..analyzer.search import goal_aux
+    goal = ALL_GOALS[goal_name]()
+    derived = compute_derived(state)
+    constraint = BalancingConstraint()
+    aux = goal_aux(goal, state, derived, constraint, num_topics)
+    return (derived,
+            goal.source_score(state, derived, constraint, aux)
+            .to(torch.float32),
+            goal.swap_dest_score(state, derived, constraint, aux)
+            .to(torch.float32),
+            goal.replica_weight(state, derived, constraint, aux)
+            .to(torch.float32))
 
 
 def cuda_graph_capture(fn):

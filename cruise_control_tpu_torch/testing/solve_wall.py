@@ -5,7 +5,11 @@ checkouts of the port, in turns.
         [--turns N]
 
 Each ROOT is a directory that holds a ``cruise_control_tpu_torch`` package:
-this checkout, or an unpacked ``git archive`` of another commit. Turn t
+this checkout, or an unpacked ``git archive`` of another commit. A ROOT
+may end in ``@KEY=VALUE[,KEY=VALUE...]``: config keys set on top of the
+reference's config in that root's runs, so one checkout can be compared
+with itself under another setting (for example
+``. .@solver.dispatch.async.readback=false``). Turn t
 runs one fresh process per root, in the given order on even turns and
 reversed on odd ones (A B, B A, ...), so two commits are compared on one
 card in alternation. Each process builds that root's kernels if needed,
@@ -33,7 +37,8 @@ from cruise_control_tpu_torch.testing import (
 if not torch.cuda.is_available():
     sys.exit("solve_wall needs a CUDA device")
 ref = load_reference_outcomes()["1k_100k"]
-opt = GoalOptimizer(CruiseControlConfig(ref["config"]), device="cuda")
+conf = dict(ref["config"], **json.loads(sys.argv[1]))
+opt = GoalOptimizer(CruiseControlConfig(conf), device="cuda")
 for timed in (False, True):
     state, meta = build_fixture(ref, torch.device("cuda"))
     torch.cuda.synchronize()
@@ -60,11 +65,15 @@ def main() -> int:
     print(card, flush=True)
     for turn in range(args.turns):
         order = args.roots if turn % 2 == 0 else args.roots[::-1]
-        for root in order:
-            out = subprocess.run([sys.executable, "-c", _CHILD], cwd=root,
-                                 capture_output=True, text=True, check=True)
+        for spec in order:
+            root, _, sets = spec.partition("@")
+            overrides = dict(kv.split("=", 1) for kv in sets.split(",")
+                             if kv)
+            out = subprocess.run(
+                [sys.executable, "-c", _CHILD, json.dumps(overrides)],
+                cwd=root, capture_output=True, text=True, check=True)
             line = json.loads(out.stdout.strip().splitlines()[-1])
-            print(json.dumps({"root": root, "turn": turn, "card": card,
+            print(json.dumps({"root": spec, "turn": turn, "card": card,
                               **line}), flush=True)
     return 0
 

@@ -26,6 +26,7 @@ accumulator instead (``xla_vector_sum``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 _SUM_WINDOW = 32
@@ -131,9 +132,12 @@ def fma_f32(a, b, c) -> torch.Tensor:
     final rounding to f32 equals one rounding of the exact value. Plain
     f64 arithmetic, so the CPU and the card give the same bits, and no
     reliance on what a compiler contracts."""
-    a, b, c = (torch.as_tensor(x, dtype=torch.float32) for x in (a, b, c))
-    p = a.double() * b.double()
-    c64 = c.double()
+    a, b, c = (x.to(torch.float32).double() if isinstance(x, torch.Tensor)
+               else float(np.float32(x)) for x in (a, b, c))
+    if not isinstance(c, torch.Tensor):
+        c = torch.full_like(a if isinstance(a, torch.Tensor) else b, c)
+    p = a * b
+    c64 = c
     s = p + c64
     cb = s - p
     err = (p - (s - cb)) + (c64 - cb)

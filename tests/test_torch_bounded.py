@@ -130,6 +130,24 @@ class _Script:
         return out + (None,) if self.ring else out
 
 
+class _Read:
+    """A dispatch's (applied, rounds) as the port's pump reads them."""
+
+    def __init__(self, applied: int, rounds: int):
+        self._values = (applied, rounds)
+
+    def values(self) -> tuple[int, int]:
+        return self._values
+
+
+def _port_enqueue(script):
+    """``script`` under the port's enqueue contract: (st, read, donated)."""
+    def enqueue(st, budget: int):
+        st, applied, rounds, donated = script(st, budget)
+        return st, _Read(applied, rounds), donated
+    return enqueue
+
+
 def _spy(mod, k):
     class Spy(mod.AdaptiveDispatch):
         def __init__(self):
@@ -156,7 +174,8 @@ def test_run_bounded_pass_matches(async_rb, work, cap, k):
     for mod, ring in ((jchain, True), (tchain, False)):
         script, ctl, stats = _Script(work, ring), _spy(mod, k), \
             mod.DispatchStats()
-        out = mod.run_bounded_pass(script, 0, cap, ctl,
+        enqueue = script if mod is jchain else _port_enqueue(script)
+        out = mod.run_bounded_pass(enqueue, 0, cap, ctl,
                                    async_readback=async_rb, stats=stats)
         results.append((out, script.enqueued, ctl.events, stats.as_dict()))
         assert sum(script.enqueued) <= cap + k

@@ -3,12 +3,14 @@
 JAX package's own: every entry is recomputed here with the JAX package on
 the CPU and must equal the file field for field.
 
-Each entry is a ``bench.py::_run_stage`` fixture at 1,000 brokers / 100k
-partitions (healthy, and with the last 50 brokers DEAD) solved by the
-JAX ``GoalOptimizer`` with the default config and
-``solver.dispatch.target.seconds=0``, so the bounded path's dispatch
-boundaries do not depend on wall-clock. About a minute per entry on a
-CPU, so the file is marked slow.
+Each entry is a ``bench.py::_run_stage`` fixture, at 1,000 brokers /
+100k partitions (healthy, and with the last 50 brokers DEAD) and at
+7,000 brokers / 1M partitions / 700 topics (healthy: bench.py's STAGES
+(7_000, 1_000_000, 0), above ``fill.TARGET_DESTS_MAX_P``, so the
+targeted column is off), solved by the JAX ``GoalOptimizer`` with the
+default config and ``solver.dispatch.target.seconds=0``, so the bounded
+path's dispatch boundaries do not depend on wall-clock. About a minute
+per 1k entry and seven for 7k/1M on a CPU, so the file is marked slow.
 
 Regenerate the file (after a deliberate change to the reference) with
 ``python -m tests.test_torch_reference_outcomes`` from the repo root.
@@ -30,6 +32,11 @@ CONFIG = {"solver.dispatch.target.seconds": 0}
 SPECS = {
     "1k_100k": dict(fixture=dict(STAGE, drain=0), config=CONFIG),
     "1k_100k_drain50": dict(fixture=dict(STAGE, drain=50), config=CONFIG),
+    # bench.py's STAGES (7_000, 1_000_000, 0): the README's headline shape,
+    # above fill.TARGET_DESTS_MAX_P, so the targeted column is off.
+    "7k_1m": dict(fixture=dict(STAGE, num_brokers=7000, num_topics=700,
+                               num_partitions=1_000_000, drain=0),
+                  config=CONFIG),
 }
 
 
