@@ -118,9 +118,16 @@ launches are counted per replay of each graph.
     K5 against its twin on a CPU copy (disk assignment and final loads
     bit for bit) on both calls, at D = 4 and 8 on seeded random
     placements at 1k/100k, on the sentinel-collision fixtures and on 40
-    small random ones; K5's load mode against its twin; each timed beside
-    the twin on the card and its bound. K5's device launches per call
-    must be the same at every shape.
+    small random ones; each timed beside the twin on the card and its
+    bound. K5's device launches per call must be the same at every
+    shape. K5's load mode (``disk_load``) bit for bit against its twin,
+    run under ``torch.cuda.set_sync_debug_mode("error")`` (no host
+    synchronisation), on both calls' disks, at D = 4 and 8 at 1k/100k and
+    on a broker above the balancer's 8,192 replicas (4 brokers, 12,000
+    partitions, D = 2 and 8: the load mode returns its loads, the
+    balancer must raise its limit); timed at 7k/1M with D = 2 and at
+    1k/100k with D = 4 and 8 beside its twin, one ``index_add_`` of the
+    same slots and its bound, four device ops a call at every shape.
 12. ``demote_broker``'s solve at 7k/1M: brokers 6,950-6,999 DEMOTED and
     excluded for leadership, PreferredLeaderElectionGoal alone, pinned
     dispatch: a warm-up solve, then a steady solve (launch counts reset
@@ -145,9 +152,10 @@ launches are counted per replay of each graph.
     apart (at the bounded path's shapes, with the other shapes under
     ``other_shapes``, and launches per steady solve of every main path),
     then the device line. Every line carries its device launches per
-    call from the profiler; K2's lines also the nodes of a CUDA graph
-    capturing one call, which must be the same at every shape, or the
-    run fails.
+    call from the profiler (K6's grid mode two, its recheck one, or the
+    run fails; each K6 line names the active goal of its round); K2's
+    lines also the nodes of a CUDA graph capturing one call, which must
+    be the same at every shape, or the run fails.
 """
 
 from __future__ import annotations
@@ -443,8 +451,13 @@ K4_KERNELS = ["carry_copy_kernel", "event_fold_kernel"]
 K5_KERNELS = ["count_kernel", "scan_kernel", "scatter_kernel",
               "balance_kernel", "fixup_kernel", "Memset (",
               "Memcpy DtoD"]
-K6_KERNELS = {"score_grid": ["score_grid_kernel"],
+# K5's load mode: bucket count, scan, scatter, fold.
+K5L_KERNELS = ["load_count_kernel", "load_scan_kernel",
+               "load_scatter_kernel", "load_fold_kernel"]
+# K6's grid mode: the destination panel, then the rows.
+K6_KERNELS = {"score_grid": ["panel_kernel", "score_grid_kernel"],
               "score_grid_recheck": ["recheck_kernel"]}
+K6_OPS = {"score_grid": 2, "score_grid_recheck": 1}
 # K7's kernels and its memsets (the flag, the peak); K2's leadership mode
 # (its digit passes share the name of K2's); K8's kernel and the memset of
 # its lists.
@@ -731,23 +744,50 @@ def check_k5(disks_mod, state, disks, band, movable, label: str,
     return line
 
 
-def k5_load_line(disks_mod, state, disks, label: str) -> dict:
-    """K5's load mode (``disk_load`` on the card) timed beside its twin and
-    one ``index_add_`` of the same slots (not in flat slot order)."""
+def k5_load_line(disks_mod, state, disks, label: str,
+                 timed: bool = True) -> dict | None:
+    """K5's load mode (``disk_load`` on the card) bit for bit against its
+    twin on a CPU copy, run under ``torch.cuda.set_sync_debug_mode("error")``
+    (no host synchronisation); timed beside its twin and one ``index_add_``
+    of the same slots (not in flat slot order). Its bytes: each slot's
+    broker, disk and load and each partition's mask read once, the
+    [B, D] loads written once; an add a slot."""
     import torch
     b, d = disks.disk_capacity.shape
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = disks_mod.disk_load(state, disks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = disks_mod.disk_load(state.to("cpu"), disks.to("cpu"))
+    if not torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)):
+        fail(f"K5 load mode at {label} differs from the twin's")
+    print(f"K5 load mode at {label}: bitwise equal to the twin on the CPU, "
+          "no host synchronisation (sync debug mode 'error')")
+    if not timed:
+        return None
     exists = (state.assignment >= 0) & state.partition_mask[:, None] \
         & (disks.disk_assignment >= 0)
     seg = torch.where(exists, state.assignment.long() * d
                       + disks.disk_assignment.long(), b * d).reshape(-1)
     flat = torch.rand(seg.shape[0], device=state.device)
     p, s = state.assignment.shape
-    return dict(shape=label, max_abs_err=0.0, **measure(
+    line = dict(shape=label, max_abs_err=0.0, **measure(
         lambda: disks_mod.disk_load(state, disks),
         lambda: disks_mod._disk_load_plain(state, disks.disk_assignment, d),
-        K5_KERNELS, k5_bytes(state, disks) - p * s * 4, 2 * p * s,
+        K5L_KERNELS, p * s * 12 + p + b * d * 4, p * s,
         lambda: torch.zeros(b * d + 1, device=state.device)
         .index_add_(0, seg, flat)))
+    print(f"  K5 load mode at {label}: {line['ms']:.4f} ms by CUDA events, "
+          f"device {line['device_ms']} ms in "
+          f"{line['device_launches_per_call']} device ops, twin "
+          f"{line['plain_ms']:.4f} ms, index_add_ {line['library_ms']:.4f} "
+          f"ms, bound {line['bound_ms']:.5f} ms")
+    if line["device_launches_per_call"] != len(K5L_KERNELS):
+        fail(f"K5 load mode at {label}: {line['device_launches_per_call']} "
+             f"device ops a call, not {len(K5L_KERNELS)}")
+    return line
 
 
 def k6_cost(mode: str, args) -> tuple[int, int, int]:
@@ -808,12 +848,21 @@ def check_k6(sg_mod, k6_mismatches, rec: dict, label: str,
                 *rec["recheck"]), lambda: sg_mod.recheck_plain(
                 *rec["recheck"][:9]))):
         rows, nbytes, ops = k6_cost(name, args)
-        line = dict(shape=label, rows=rows, max_abs_err=0.0,
+        goals = args[3]
+        active = goals[args[5]].name
+        priors = sum(1 for i in range(len(goals)) if args[6][i])
+        line = dict(shape=label, rows=rows, active_goal=active,
+                    prior_goals=priors, max_abs_err=0.0,
                     **measure(fn, plain, K6_KERNELS[name], nbytes, ops))
-        print(f"K6 {name} at {label}: {rows} rows, {line['ms']:.4f} ms "
-              f"(device {line['device_ms']}), twin {line['plain_ms']:.4f} "
-              f"ms, bound {line['bound_ms']:.5f} ms ({line['bound_by']}); "
-              "bitwise equal to the twin")
+        print(f"K6 {name} at {label} ({active} active, {priors} prior): "
+              f"{rows} rows, {line['ms']:.4f} ms "
+              f"(device {line['device_ms']} in "
+              f"{line['device_launches_per_call']} device ops), twin "
+              f"{line['plain_ms']:.4f} ms, bound {line['bound_ms']:.5f} ms "
+              f"({line['bound_by']}); bitwise equal to the twin")
+        if line["device_launches_per_call"] != K6_OPS[name]:
+            fail(f"K6 {name} at {label}: {line['device_launches_per_call']} "
+                 f"device ops a call, not {K6_OPS[name]}")
         lines.append(line)
     return lines
 
@@ -1279,7 +1328,8 @@ def main() -> int:
             build_fixture, disk_outcome, entry_disks, k2_round_inputs,
             k4_adversarial_batch, k4_drain_batch, k6_goals, k6_mismatches,
             k6_round_inputs, last_broker_ids,
-            load_reference_outcomes, outcome, random_disk_case,
+            crowded_broker_case, load_reference_outcomes, outcome,
+            random_disk_case,
             random_placement_disks, sentinel_case, swap_grid_inputs,
         )
     except ImportError as exc:
@@ -1954,19 +2004,41 @@ def main() -> int:
                      "7k/1M remove_disks, D=2, 50 dirs dead")]
         k5_load = k5_load_line(disks_mod, jb_state, rb_disks,
                                "7k/1M, D=2")
+        k5_load_line(disks_mod, jb_state, rm_disks,
+                     "7k/1M remove_disks, D=2, 50 dirs dead", timed=False)
         del rb_disks, rm_disks
         rp_state, _rp_meta = build_fixture(healthy, dev)
         rp_arrays = cluster_to_numpy(rp_state)
+        k5_load_others = []
         for num_disks, goal_band, seed in ((4, band, 4), (8, None, 8)):
             rp_disks, rp_movable = random_placement_disks(
                 rp_arrays["assignment"], rp_arrays["partition_mask"],
                 rp_arrays["capacity"][:, 3], num_disks, seed)
+            rp_disks = disks_mod.disks_from_numpy(rp_disks, dev)
             k5_lines.append(check_k5(
-                disks_mod, rp_state, disks_mod.disks_from_numpy(rp_disks, dev),
+                disks_mod, rp_state, rp_disks,
                 goal_band, torch.as_tensor(rp_movable, device=dev),
                 f"1k/100k, D={num_disks}, seeded random placement, "
                 f"{'band' if goal_band else 'capacity'}, 10% pinned"))
+            k5_load_others.append(k5_load_line(
+                disks_mod, rp_state, rp_disks,
+                f"1k/100k, D={num_disks}, seeded random placement"))
         del rp_state
+        # A broker above the balancer's 8,192 replicas: the load mode
+        # returns its loads, the balancer raises its limit.
+        for num_disks in (2, 8):
+            cl, dk = crowded_broker_case(num_disks, seed=num_disks)
+            cr_state = cluster_from_numpy(cl, dev)
+            cr_disks = disks_mod.disks_from_numpy(dk, dev)
+            k5_load_line(disks_mod, cr_state, cr_disks,
+                         f"4 brokers, {int((cl['assignment'] == 1).sum())} "
+                         f"replicas on broker 1, D={num_disks}", timed=False)
+            try:
+                disks_mod.balance_intra_broker(cr_state, cr_disks)
+            except ValueError as err:
+                print(f"K5 balancer on that case raises as it should: {err}")
+            else:
+                fail("K5's balancer took a broker above 8,192 replicas")
         for case in SENTINEL_CASES:
             cl, dk, mv, case_band = sentinel_case(case)
             check_k5(disks_mod, cluster_from_numpy(cl, dev),
@@ -2159,7 +2231,7 @@ def main() -> int:
         replaces="cruise_control_tpu/model/disks.py:54",
         launches=rb_launches.get("intra_broker_load", 0),
         launches_remove_disks=rm_launches.get("intra_broker_load", 0),
-        **k5_load))
+        **k5_load, other_shapes=k5_load_others))
     print(json.dumps({"kernels": kernel_lines, "card": card,
                       "rounds_per_block": chain_mod.ROUNDS_PER_BLOCK,
                       "fused_100_10k": {"warmup_s": warm_100_s,

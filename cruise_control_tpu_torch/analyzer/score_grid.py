@@ -10,11 +10,16 @@ acceptance of a rank-ordered batch carrying cumulative pre-deltas: every
 prior goal's, and the active goal's where an earlier row of the batch
 touches the same brokers.
 
-On a CUDA tensor each mode launches ``csrc/score_grid.cu`` once; on a CPU
-tensor it runs the plain twin, the reference's ops
+On a CUDA tensor the grid mode launches ``csrc/score_grid.cu`` twice (a
+panel of the per-broker values every goal reads at the move block's
+destinations, then the rows: CTAs over groups of sources staged in
+shared memory, the leadership block one thread a row) and the recheck
+mode once; on a CPU tensor each runs the plain twin, the reference's ops
 (``score_grid_plain``, ``recheck_plain``). The kernel reads the goals
 through a table of descriptors (``goal_table``): each goal's family and
-the device arrays its ``score_args`` builds in PyTorch.
+the device arrays its ``score_args`` builds in PyTorch; the panel's plan
+(``GridParams.field`` / ``goal_slot``: the core per-broker fields, then
+each goal's [B] arrays) is packed with it.
 """
 
 from __future__ import annotations
@@ -37,6 +42,12 @@ from .search import _OFFLINE_BONUS
 
 # Descriptors the kernel's parameters hold (kMaxGoals in the source).
 MAX_GOALS = 24
+# The panel's fields: the kernel's core per-broker fields (alive, new, the
+# two exclusions, rack, replica and leader counts, potential NW-out, four
+# loads, four capacities), then at most two [B] arrays a goal (kCore and
+# kMaxFields in the source).
+PANEL_CORE_FIELDS = 16
+MAX_PANEL_FIELDS = PANEL_CORE_FIELDS + 2 * MAX_GOALS
 
 # The arrays each family's descriptor holds: (dtype, shape), the shape in
 # the symbols B (brokers), T (topics), P (partitions) and "" (0-dim).
@@ -96,7 +107,11 @@ class GridParams(ctypes.Structure):
                    ("active", ctypes.c_int32),
                    ("prior_mask", ctypes.c_uint32),
                    ("pad_", ctypes.c_int32),
-                   ("goals", GoalDesc * MAX_GOALS)])
+                   ("goals", GoalDesc * MAX_GOALS),
+                   ("panel", _VP), ("n_fields", ctypes.c_int32),
+                   ("pad2_", ctypes.c_int32),
+                   ("field", ctypes.c_int16 * MAX_PANEL_FIELDS),
+                   ("goal_slot", ctypes.c_int8 * (4 * MAX_GOALS))])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,9 +143,17 @@ def goal_table(goals: Sequence[Goal], aux_list, active: int,
 
 def _pack_goals(params: GridParams, table: GoalTable, sizes: dict,
                 dev) -> None:
+    """The goal table, and the panel's plan: the core fields at slots
+    0-15, then every goal's [B] array at the next slot (``goal_slot`` -1
+    for the other arrays)."""
     params.n_goals = len(table.args)
     params.active = table.active
     params.prior_mask = sum(1 << j for j, p in enumerate(table.prior) if p)
+    n_fields = PANEL_CORE_FIELDS
+    for f in range(PANEL_CORE_FIELDS):
+        params.field[f] = f
+    ctypes.memset(ctypes.addressof(params.goal_slot), 0xFF,
+                  ctypes.sizeof(params.goal_slot))
     for j, a in enumerate(table.args):
         spec = FAMILY_ARRAYS[a.family]
         if a.family == Family.MIN_TOPIC_LEADERS and not a.ival:
@@ -147,6 +170,11 @@ def _pack_goals(params: GridParams, table: GoalTable, sizes: dict,
             kernels.require(t, dev, dtype, shape,
                             f"{a.family.name} array {k}", "score_grid")
             desc.p[k] = t.data_ptr()
+            if dims == "B":
+                params.field[n_fields] = PANEL_CORE_FIELDS + 4 * j + k
+                params.goal_slot[4 * j + k] = n_fields
+                n_fields += 1
+    params.n_fields = n_fields
 
 
 def _common_params(mode: int, n: int, state: ClusterTensors,
@@ -293,6 +321,9 @@ def grid_params(state: ClusterTensors, derived: DerivedState,
     has_new = derived.new_brokers.any()
     q.has_new = has_new.data_ptr()
     q.k_src, q.k_dst, q.extra, q.k_l = k_src, k_dst, int(extra), k_l
+    panel = torch.empty(q.n_fields * (k_dst + (1 + int(extra)) * k_src),
+                        dtype=_I32, device=dev)
+    q.panel = panel.data_ptr()
     q.move_block_ok, q.lead_block_ok = int(move_block_ok), int(lead_block_ok)
 
     def out(dtype, *shape):
@@ -313,7 +344,7 @@ def grid_params(state: ClusterTensors, derived: DerivedState,
         setattr(q, name, getattr(deltas, name).data_ptr())
     q.topic_out = deltas.topic.data_ptr()
     q.accept, q.score = accept.data_ptr(), score.data_ptr()
-    return q, (deltas, kind, accept, score), (has_new,)
+    return q, (deltas, kind, accept, score), (has_new, panel)
 
 
 def recheck_plain(state: ClusterTensors, derived: DerivedState,

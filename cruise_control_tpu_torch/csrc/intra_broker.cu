@@ -1,15 +1,18 @@
 // K5 intra_broker: the intra-broker disk balancer, each broker's loop run
-// to its own fixed point in one CTA.
+// to its own fixed point in one CTA; and, in load mode, the per-(broker,
+// disk) DISK load.
 //
 // Replaces (JAX) cruise_control_tpu/model/disks.py:92 balance_intra_broker
 // (a lax.while_loop of at most max_rounds rounds over every broker at
 // once) and, in load mode, the per-(broker, disk) segment sum of
 // disk_load (:54).
 //
-// Bound on this card: bytes. The function reads each slot's broker, disk,
+// Bound on this card: bytes. The balancer reads each slot's broker, disk,
 // DISK load and its partition's movable flag once and writes each slot's
 // disk once (~51 MB at 7,000 brokers / 1M partitions / RF 3); its
-// arithmetic is a few adds and compares a slot a round.
+// arithmetic is a few adds and compares a slot a round. The load mode
+// reads each slot's broker, disk and load and each partition's mask once
+// (~38 MB there) and writes [B, D] floats.
 //
 // Why brokers run apart: a broker's round reads only its own slots, and a
 // broker that does not move keeps its state, so it never moves again. Each
@@ -17,7 +20,7 @@
 // point or to max_rounds, which is what the reference's global loop gives
 // it. Launches per call do not depend on the round count.
 //
-// Design:
+// Balancer design:
 //  group (4 nodes): per-broker replica counts (integer atomics), one CTA
 //  scans them into bases and the largest count, and every slot takes a
 //  position in its broker's list (integer atomics, any order);
@@ -46,6 +49,41 @@
 //  brokers above it and reruns the owner's loop from the input with the
 //  move of that slot frozen from that round on (the owner replays the
 //  undone move until max_rounds, changing nothing).
+//
+// Load mode design (cc_intra_broker_load): the slots are moved into broker
+// order, stably, in two passes whose writes are coalesced, then each
+// broker's loads are folded per disk; no host read, no sort of a broker's
+// list, no atomic whose order shows in the result, four launches at any
+// shape. Brokers form at most 256 buckets of 2**k consecutive brokers.
+//  1. count: per tile of 8,192 slots, its slots a bucket (shared-memory
+//     atomics: integer counts, exact in any order), a row of a
+//     [tiles, buckets] table;
+//  2. scan: per bucket, each tile's first position within it (an
+//     exclusive scan down its column of the table) and its total; the
+//     next steps place bucket k after the totals of buckets below k;
+//  3. scatter: each tile sorts its slots stably by bucket in shared memory
+//     (chunks of 1,024 slots, one a thread: a slot links itself into its
+//     bucket's list for the chunk by an atomicExch on the list's head,
+//     walks the list and counts the bucket's slots of the chunk and those
+//     below its own index, its rank; the lowest takes that many places
+//     from the bucket's cursor), then writes each bucket's run, coalesced,
+//     as 8-byte entries (the slot's DISK load, its broker and its disk, -1
+//     for none or a slot >= D): every bucket lists its slots in flat order;
+//  4. fold: one CTA per bucket reads its entries in chunks, sorts each
+//     chunk stably by broker in shared memory (up to 32 brokers a bucket:
+//     1,024 to 4,096 entries ranked by ballots on the broker's bits and
+//     per-group counts; above: 1,024 ranked by lists as in step 3), and
+//     one warp per broker of the chunk adds, lane d for disk d, the
+//     broker's loads of that disk serially with __fadd_rn onto its
+//     running sum.
+// Step 4 adds each (broker, disk)'s loads in flat slot order from +0.0,
+// the reference's sequential segment sum, so the result carries the plain
+// twin's bits (its index_add_ on the CPU). Two passes, because one that
+// wrote each slot straight to its broker's bucket (every warp's stores to
+// 32 scattered places, 3M of them at 7,000 brokers / 1M partitions) was
+// slower on an H100 than both of these together (PERF.md). The load mode
+// takes what the balancer's limits allow: B <= 2**20, D <= 32, any number
+// of replicas on one broker.
 #include "common.cuh"
 
 namespace {
@@ -505,6 +543,434 @@ __global__ void __launch_bounds__(kThreads) fixup_kernel(
   }
 }
 
+// ---- load mode ----------------------------------------------------------
+
+constexpr int kLoadThreads = 1024;  // one slot (pass 1) or entry (pass 2) each
+constexpr int kMaxBuckets = 256;
+constexpr int kTile = 8 * kLoadThreads;  // slots of a pass-1 tile
+constexpr int kFoldGroups = 4;           // entries a thread a fold chunk
+
+// Brokers of a bucket: buckets of 2**shift consecutive brokers, the
+// fewest a bucket that make at most kMaxBuckets of them.
+struct LoadPlan {
+  int shift, buckets, tiles;
+};
+
+inline LoadPlan load_plan(long long n, int B) {
+  LoadPlan pl;
+  pl.shift = 0;
+  while ((static_cast<long long>(kMaxBuckets) << pl.shift) < B) ++pl.shift;
+  pl.buckets = ((B - 1) >> pl.shift) + 1;
+  pl.tiles = static_cast<int>((n + kTile - 1) / kTile);
+  return pl;
+}
+
+// Scratch of the load mode, in int32 words: the entries [n] (8 bytes a
+// slot: its DISK load's bits, then (broker << 6) | (disk + 1), disk -1 for
+// none or a slot >= D), the [tiles, buckets] table, and each bucket's
+// total.
+struct LoadScratch {
+  unsigned long long* entry;
+  int* table;
+  int* total;
+};
+
+inline long long load_scratch_words(long long n, int B) {
+  const LoadPlan pl = load_plan(n, B);
+  return 2 * n + (static_cast<long long>(pl.tiles) + 1) * pl.buckets;
+}
+
+inline LoadScratch load_scratch_of(int* w, long long n, int B) {
+  const LoadPlan pl = load_plan(n, B);
+  LoadScratch s;
+  s.entry = reinterpret_cast<unsigned long long*>(w);
+  s.table = w + 2 * n;
+  s.total = s.table + static_cast<long long>(pl.tiles) * pl.buckets;
+  return s;
+}
+
+__device__ __forceinline__ unsigned long long load_entry(int b, float load,
+                                                         int disk, int D) {
+  const uint32_t d = disk >= 0 && disk < D ? disk + 1 : 0;
+  return (static_cast<unsigned long long>((static_cast<uint32_t>(b) << 6) |
+                                          d)
+          << 32) |
+         __float_as_uint(load);
+}
+
+__device__ __forceinline__ int entry_broker(unsigned long long e) {
+  return static_cast<int>(e >> 38);
+}
+
+// One chunk of a stable local ranking, every thread of the CTA calling it
+// with its item's key (-1 for none): each item links itself into its
+// key's list (an atomicExch on the list's head: the list's order is
+// arbitrary and nothing depends on it), then walks the list, counting the
+// key's items (count) and those below its own thread index (rank), and
+// finds the lowest of them (first). On return the heads are -1 again.
+struct Rank {
+  int rank, count, first;
+};
+
+__device__ __forceinline__ Rank rank_in_chunk(int key, int* head,
+                                              int* link) {
+  const int t = threadIdx.x;
+  if (key >= 0) link[t] = atomicExch(&head[key], t);
+  __syncthreads();
+  Rank r{0, 0, t};
+  if (key >= 0)
+    for (int j = head[key]; j >= 0; j = link[j]) {
+      ++r.count;
+      r.rank += j < t;
+      r.first = min(r.first, j);
+    }
+  __syncthreads();  // every list walked before its head is reset
+  if (key >= 0 && r.rank == 0) head[key] = -1;
+  return r;
+}
+
+// Exclusive scan of v over threads 0..kMaxBuckets-1 (the others give and
+// get 0); every thread of the CTA calls it. `sums` holds a value a warp.
+__device__ __forceinline__ int scan_buckets(int v, int* sums) {
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int mine = t < kMaxBuckets ? v : 0;
+  int x = mine;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  if (t < kMaxBuckets && lane == 31) sums[w] = x;
+  __syncthreads();
+  int before = 0;
+  if (t < kMaxBuckets)
+    for (int j = 0; j < w; ++j) before += sums[j];
+  __syncthreads();
+  return before + x - mine;
+}
+
+// Pass 1, count: each tile's slots a bucket, row `tile` of the
+// [tiles, buckets] table. Each pair of warps counts into its own
+// histogram (fewer atomics on one address).
+__global__ void __launch_bounds__(kLoadThreads) load_count_kernel(
+    const int* __restrict__ assignment, const uint8_t* __restrict__ pmask,
+    int n, int S, int B, int shift, int buckets, int* __restrict__ table) {
+  constexpr int kCopies = 16;  // a histogram for each pair of warps
+  __shared__ int hist[kCopies][kMaxBuckets];
+  const int warp = (threadIdx.x >> 5) % kCopies;
+  for (int k = threadIdx.x; k < kCopies * kMaxBuckets; k += kLoadThreads)
+    hist[k / kMaxBuckets][k % kMaxBuckets] = 0;
+  __syncthreads();
+  const int lo = blockIdx.x * kTile;
+  const int hi = min(n, lo + kTile);
+  for (int i = lo + threadIdx.x; i < hi; i += kLoadThreads) {
+    const int b = slot_broker(assignment, pmask, i, S, B);
+    if (b >= 0) atomicAdd(&hist[warp][b >> shift], 1);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < buckets; k += kLoadThreads) {
+    int c = 0;
+    for (int w = 0; w < kCopies; ++w) c += hist[w][k];
+    table[static_cast<long long>(blockIdx.x) * buckets + k] = c;
+  }
+}
+
+// Pass 1, scan: per bucket, its column of the table turned into each
+// tile's first position within the bucket (exclusive offsets), and its
+// total. A CTA takes 32 buckets (one a lane); its 32 warps split the tiles
+// into contiguous ranges.
+__global__ void __launch_bounds__(kLoadThreads) load_scan_kernel(
+    int tiles, int buckets, int* __restrict__ table, int* __restrict__ total) {
+  constexpr int kWarps = kLoadThreads / 32;
+  __shared__ int part[kWarps][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * 32 + lane;
+  const int per = (tiles + kWarps - 1) / kWarps;
+  const int t0 = min(tiles, warp * per), t1 = min(tiles, t0 + per);
+  int* col = table + k;
+  int sum = 0;
+  if (k < buckets)
+    for (int t = t0; t < t1; ++t) sum += col[static_cast<long long>(t) * buckets];
+  part[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0) {
+    int run = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int v = part[w][lane];
+      part[w][lane] = run;
+      run += v;
+    }
+    if (k < buckets) total[k] = run;
+  }
+  __syncthreads();
+  if (k >= buckets) return;
+  int run = part[warp][lane];
+  for (int t = t0; t < t1; ++t) {
+    int* c = col + static_cast<long long>(t) * buckets;
+    const int v = *c;
+    *c = run;
+    run += v;
+  }
+}
+
+// Pass 1, scatter: each tile's slots sorted stably by bucket in shared
+// memory (chunks of kLoadThreads slots, each ranked by rank_in_chunk and
+// appended to its bucket's run; the next chunk's slots load meanwhile),
+// then written out coalesced: the bucket's run of this tile starts at its
+// base plus the tile's entry of the table.
+__global__ void __launch_bounds__(kLoadThreads) load_scatter_kernel(
+    const int* __restrict__ assignment, const uint8_t* __restrict__ pmask,
+    const float* __restrict__ load, const int* __restrict__ disk, int n,
+    int S, int B, int D, int shift, int buckets, int tiles,
+    const int* __restrict__ table, const int* __restrict__ total,
+    unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned long long sorted[];  // [kTile]
+  __shared__ int head[kMaxBuckets], cursor[kMaxBuckets], first[kMaxBuckets];
+  __shared__ int link[kLoadThreads], taken[kLoadThreads];
+  __shared__ int sums[kLoadThreads / 32];
+  const int t = threadIdx.x;
+  const int lo = blockIdx.x * kTile;
+  const int hi = min(n, lo + kTile);
+  __shared__ int dest[kMaxBuckets];
+  // Bucket k's base: the exclusive scan of the totals. The tile's slots
+  // of bucket k: the next tile's offset (or the bucket's total) less this
+  // tile's; their exclusive scan places the bucket's run in shared memory,
+  // `dest` in device memory.
+  const int* row = table + static_cast<long long>(blockIdx.x) * buckets;
+  const int base_k = scan_buckets(t < buckets ? total[t] : 0, sums);
+  int c = 0;
+  if (t < buckets) {
+    const int here = row[t];
+    c = (blockIdx.x + 1 < tiles ? row[buckets + t] : total[t]) - here;
+    dest[t] = base_k + here;
+  }
+  const int at = scan_buckets(c, sums);
+  if (t < kMaxBuckets) {
+    head[t] = -1;
+    cursor[t] = at;
+    first[t] = at;
+  }
+  // This thread's next slot: its broker, load and disk.
+  int i = lo + t;
+  int b = i < hi ? slot_broker(assignment, pmask, i, S, B) : -1;
+  float ld = b >= 0 ? load[i] : 0.0f;
+  int dk = b >= 0 ? disk[i] : -1;
+  __syncthreads();
+  for (int c0 = lo; c0 < hi; c0 += kLoadThreads) {
+    const unsigned long long e = b >= 0 ? load_entry(b, ld, dk, D) : 0ull;
+    const int key = b >= 0 ? b >> shift : -1;
+    i += kLoadThreads;
+    b = i < hi ? slot_broker(assignment, pmask, i, S, B) : -1;
+    ld = b >= 0 ? load[i] : 0.0f;
+    dk = b >= 0 ? disk[i] : -1;
+    const Rank r = rank_in_chunk(key, head, link);
+    if (key >= 0 && r.rank == 0) {
+      taken[t] = cursor[key];
+      cursor[key] += r.count;
+    }
+    __syncthreads();
+    if (key >= 0) sorted[taken[r.first] + r.rank] = e;
+  }
+  __syncthreads();
+  const int m = cursor[buckets - 1];  // the tile's slots
+  for (int j = t; j < m; j += kLoadThreads) {
+    const unsigned long long e = sorted[j];
+    const int k = entry_broker(e) >> shift;
+    out[dest[k] + (j - first[k])] = e;
+  }
+}
+
+// The lanes of this warp whose key equals this lane's, from one ballot a
+// bit of the key (keys in [0, 2**bits), -1 for none).
+__device__ __forceinline__ unsigned key_peers(int key, int bits) {
+  unsigned peers = __ballot_sync(0xffffffffu, key >= 0);
+  for (int bit = 0; bit < bits; ++bit) {
+    const unsigned on = __ballot_sync(0xffffffffu, (key >> bit) & 1);
+    peers &= ((key >> bit) & 1) ? on : ~on;
+  }
+  return peers;
+}
+
+// Adds the loads of disk `lane` among a run's entries onto `a`, in order.
+__device__ __forceinline__ float fold_run(const unsigned long long* run,
+                                          int len, int lane, float a) {
+  const uint32_t me = lane + 1;
+  int x = 0;
+  for (; x + 4 <= len; x += 4) {
+    unsigned long long v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = run[x + u];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (((v[u] >> 32) & 63u) == me)
+        a = __fadd_rn(a, __uint_as_float(static_cast<uint32_t>(v[u])));
+  }
+  for (; x < len; ++x) {
+    const unsigned long long v = run[x];
+    if (((v >> 32) & 63u) == me)
+      a = __fadd_rn(a, __uint_as_float(static_cast<uint32_t>(v)));
+  }
+  return a;
+}
+
+// Pass 2, fold: one CTA a bucket, its entries (in flat slot order) in
+// chunks (the next chunk loading meanwhile), each chunk sorted stably by
+// broker in shared memory (each broker's run contiguous), then one warp
+// per broker of the chunk, lane d adding the loads of disk d of its run
+// serially with __fadd_rn onto the broker's running sum.
+//  Up to 32 brokers a bucket (B <= 8,192): chunks of kFoldGroups x
+//  kLoadThreads entries, thread t holding entries g * kLoadThreads + t;
+//  each 32 of them (a group, in flat order g-major) ranked by ballots on
+//  the broker's five bits; per broker, an exclusive scan of the groups'
+//  counts (warp q for broker q) places each group's entries; the warp of
+//  broker q keeps its sums in registers.
+//  Above: chunks of kLoadThreads entries ranked by rank_in_chunk, the sums
+//  in `out`.
+__global__ void __launch_bounds__(kLoadThreads) load_fold_kernel(
+    int B, int D, int shift, int buckets, const int* __restrict__ total,
+    const unsigned long long* __restrict__ entry, float* __restrict__ out) {
+  constexpr int kWarps = kLoadThreads / 32;
+  constexpr int kGroups = kFoldGroups * kWarps;
+  // The chunk's entries, then [wide] heads, run starts and lengths,
+  // wide = max(width, 32).
+  extern __shared__ unsigned long long chunk[];
+  __shared__ int cnt[kGroups][33];
+  __shared__ int link[kLoadThreads], taken[kLoadThreads];
+  __shared__ int sums[kWarps], bucket_base, alloc;
+  const int width = 1 << shift, wide = width > 32 ? width : 32;
+  int* head = reinterpret_cast<int*>(chunk + kFoldGroups * kLoadThreads);
+  int* run_start = head + wide;
+  int* run_len = run_start + wide;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int k = blockIdx.x;
+  const int b0 = k * width, brokers = min(width, B - b0);
+  for (int j = t; j < wide; j += kLoadThreads) {
+    head[j] = -1;
+    run_len[j] = 0;
+  }
+  const int before = scan_buckets(t < buckets ? total[t] : 0, sums);
+  if (t == k) bucket_base = before;
+  if (t == 0) alloc = 0;
+  __syncthreads();
+  const unsigned long long* bucket = entry + bucket_base;
+  const int count = total[k];
+  if (shift <= 5) {
+    float acc = 0.0f;  // broker b0 + warp, disk lane
+    // Groups a thread a chunk: fewer for narrower buckets (a broker's run
+    // of a chunk is about kChunk / width entries, folded by one warp).
+    const int G = shift >= 5 ? 4 : (shift >= 4 ? 2 : 1);
+    const int kChunk = G * kLoadThreads;
+    unsigned long long e[kFoldGroups];
+#pragma unroll
+    for (int g = 0; g < kFoldGroups; ++g)
+      e[g] = g < G && g * kLoadThreads + t < count
+                 ? bucket[g * kLoadThreads + t] : 0;
+    for (int c0 = 0; c0 < count; c0 += kChunk) {
+      int key[kFoldGroups], rank[kFoldGroups];
+#pragma unroll
+      for (int g = 0; g < kFoldGroups; ++g) {
+        const int j = c0 + g * kLoadThreads + t;
+        key[g] = g < G && j < count ? entry_broker(e[g]) - b0 : -1;
+        const unsigned peers = key_peers(key[g], 5);
+        rank[g] = __popc(peers & below);
+        cnt[g * kWarps + warp][lane] = 0;
+        __syncwarp();
+        if (key[g] >= 0 && rank[g] == 0)
+          cnt[g * kWarps + warp][key[g]] = __popc(peers);
+      }
+      __syncthreads();
+      // Warp q for broker q: lane l takes groups Gl..Gl+G-1 in order.
+      {
+        int v[kFoldGroups], x = 0;
+#pragma unroll
+        for (int u = 0; u < kFoldGroups; ++u) {
+          v[u] = u < G ? cnt[G * lane + u][warp] : 0;
+          x += v[u];
+        }
+        const int mine = x;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, d);
+          if (lane >= d) x += y;
+        }
+        int run = x - mine;
+#pragma unroll
+        for (int u = 0; u < kFoldGroups; ++u)
+          if (u < G) {
+            cnt[G * lane + u][warp] = run;
+            run += v[u];
+          }
+        if (lane == 31) run_len[warp] = x;
+      }
+      __syncthreads();
+      if (warp == 0) {  // the runs' starts: an exclusive scan of lengths
+        const int len = lane < brokers ? run_len[lane] : 0;
+        int x = len;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+          const int y = __shfl_up_sync(0xffffffffu, x, d);
+          if (lane >= d) x += y;
+        }
+        run_start[lane] = x - len;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int g = 0; g < kFoldGroups; ++g) {
+        if (key[g] >= 0)
+          chunk[run_start[key[g]] + cnt[g * kWarps + warp][key[g]] + rank[g]] =
+              e[g];
+        const int j = c0 + kChunk + g * kLoadThreads + t;
+        e[g] = g < G && j < count ? bucket[j] : 0;
+      }
+      __syncthreads();
+      if (warp < brokers && lane < D)
+        acc = fold_run(chunk + run_start[warp], run_len[warp], lane, acc);
+      __syncthreads();
+    }
+    if (warp < brokers && lane < D)
+      out[static_cast<long long>(b0 + warp) * D + lane] = acc;
+    return;
+  }
+  for (int j = t; j < brokers * D; j += kLoadThreads)
+    out[static_cast<long long>(b0) * D + j] = 0.0f;
+  unsigned long long e = t < count ? bucket[t] : 0ull;
+  __syncthreads();
+  for (int c0 = 0; c0 < count; c0 += kLoadThreads) {
+    const int key = c0 + t < count ? entry_broker(e) - b0 : -1;
+    const unsigned long long mine = e;
+    e = c0 + kLoadThreads + t < count ? bucket[c0 + kLoadThreads + t] : 0ull;
+    const Rank r = rank_in_chunk(key, head, link);
+    if (key >= 0 && r.rank == 0) {
+      taken[t] = atomicAdd(&alloc, r.count);  // where the run goes only
+      run_start[key] = taken[t];
+      run_len[key] = r.count;
+    }
+    __syncthreads();
+    if (key >= 0) chunk[taken[r.first] + r.rank] = mine;
+    __syncthreads();
+    for (int q = warp; q < brokers; q += kWarps) {
+      const int len = run_len[q];
+      if (len > 0 && lane < D) {
+        float* sum = out + static_cast<long long>(b0 + q) * D + lane;
+        *sum = fold_run(chunk + run_start[q], len, lane, *sum);
+      }
+    }
+    __syncthreads();
+    for (int q = t; q < brokers; q += kLoadThreads) run_len[q] = 0;
+    if (t == 0) alloc = 0;
+    __syncthreads();
+  }
+}
+
+// Dynamic shared memory of the fold: a chunk's entries and three [wide]
+// int arrays.
+inline size_t fold_smem(int shift) {
+  const size_t wide = shift > 5 ? size_t{1} << shift : 32;
+  return sizeof(unsigned long long) * kFoldGroups * kLoadThreads +
+         sizeof(int) * 3 * wide;
+}
+
 inline int grid_of(long long n) {
   const long long want = (n + 255) / 256;
   return static_cast<int>(want < 2112 ? (want > 0 ? want : 1) : 2112);
@@ -588,5 +1054,52 @@ extern "C" int cc_intra_broker_balance(
   if (max_rounds > 0)
     fixup_kernel<<<1, kThreads, smem, stream>>>(in, sc, cap2, out_disk,
                                                    out_load);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Int32 words of scratch the load mode needs for n slots and B brokers.
+extern "C" long long cc_intra_broker_load_scratch_words(long long n, int B) {
+  return load_scratch_words(n, B);
+}
+
+// Load mode: out_load [B, D] = each (broker, disk)'s DISK load summed in
+// flat slot order over the slots whose partition is masked in, whose
+// broker is in [0, B) and whose disk is in [0, D). No host read.
+extern "C" int cc_intra_broker_load(const int* assignment,
+                                    const uint8_t* partition_mask,
+                                    const float* load, const int* disk_in,
+                                    int P, int S, int B, int D,
+                                    float* out_load, int* scratch,
+                                    long long scratch_words, void* stream_) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+  const long long n = static_cast<long long>(P) * S;
+  if (n <= 0 || n >= (1LL << 31) || B < 1 || B > (1 << 20) || D < 1 ||
+      D > kMaxDisks || scratch_words < load_scratch_words(n, B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        load_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(unsigned long long)) * kTile);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(load_fold_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(fold_smem(12)));  // B <= 2**20
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  const LoadPlan pl = load_plan(n, B);
+  const LoadScratch sc = load_scratch_of(scratch, n, B);
+  const int ni = static_cast<int>(n);
+  load_count_kernel<<<pl.tiles, kLoadThreads, 0, stream>>>(
+      assignment, partition_mask, ni, S, B, pl.shift, pl.buckets, sc.table);
+  load_scan_kernel<<<(pl.buckets + 31) / 32, kLoadThreads, 0, stream>>>(
+      pl.tiles, pl.buckets, sc.table, sc.total);
+  load_scatter_kernel<<<pl.tiles, kLoadThreads,
+                        sizeof(unsigned long long) * kTile, stream>>>(
+      assignment, partition_mask, load, disk_in, ni, S, B, D, pl.shift,
+      pl.buckets, pl.tiles, sc.table, sc.total, sc.entry);
+  load_fold_kernel<<<pl.buckets, kLoadThreads, fold_smem(pl.shift), stream>>>(B, D, pl.shift, pl.buckets, sc.total, sc.entry,
+                               out_load);
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,8 @@ kernel (never the plain-PyTorch twin); a run resets it to show that its
 path went through the kernels. K1's two modes count apart:
 ``segment_reduce`` (full) and ``segment_reduce_offline``; so do K5's:
 ``intra_broker`` (the balancer) and ``intra_broker_load`` (per-disk
-loads); so do K6's: ``score_grid`` (the candidate grid) and
+loads, its own entry ``cc_intra_broker_load``); so do K6's:
+``score_grid`` (the candidate grid: a panel launch and a row launch) and
 ``score_grid_recheck`` (the joint recheck of a selected batch); and K2's
 leadership mode counts as ``select_sources_leadership``. K7 counts as
 ``slot_weights`` and K8 as ``swap_top_replicas``. A wrapper
@@ -125,6 +126,10 @@ _SIGNATURES = {
         "cc_intra_broker_group": [_VP, _VP] + [_I] * 3 + [_VP, _VP],
         "cc_intra_broker_balance": [_VP] * 7 + [_I] * 5
         + [ctypes.c_float] * 2 + [_I] * 2 + [_VP] * 4,
+        "cc_intra_broker_load_scratch_words": ([ctypes.c_longlong, _I],
+                                               ctypes.c_longlong),
+        "cc_intra_broker_load": [_VP] * 4 + [_I] * 4 + [_VP] * 2
+        + [ctypes.c_longlong, _VP],
     },
     "score_grid": {
         "cc_score_grid": [_VP, _VP],
@@ -184,6 +189,9 @@ LIMITS = {
     "intra_broker": "<= 8192 replicas on one broker (one CTA's shared "
                     "memory), D <= 32 disks a broker, B <= 2**20 brokers and "
                     "0 < P*S < 2**31",
+    "intra_broker_load": "D <= 32 disks a broker, B <= 2**20 brokers and "
+                         "0 < P*S < 2**31 (any number of replicas on one "
+                         "broker)",
     "score_grid": "<= 24 goals in the table (prior and active; the "
                   "parameters are passed by value), S <= 64 slots, "
                   "0 < P*S < 2**31 and fewer than 2**31 rows",

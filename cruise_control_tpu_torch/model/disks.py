@@ -11,9 +11,10 @@ its least-utilized alive disk, until no broker moves or ``max_rounds``.
 On a CUDA tensor it launches K5 (``csrc/intra_broker.cu``), which runs
 each broker's loop to its own fixed point in one CTA; on a CPU tensor it
 runs the plain twin, a per-round loop over all brokers like the
-reference's. ``disk_load`` on a CUDA tensor runs K5's load mode (the same
-grouping, no rounds), so both sum each (broker, disk) in flat slot order,
-as the reference's segment sum does.
+reference's. ``disk_load`` on a CUDA tensor runs K5's load mode, a stable
+placement of the slots by broker and a fold per (broker, disk), with no
+host read; both sum each (broker, disk) in flat slot order, as the
+reference's segment sum does.
 
 Two properties of the reference that both versions carry on purpose:
 
@@ -49,8 +50,9 @@ from .tensors import (
 )
 
 INT32_MAX = 2 ** 31 - 1
-# K5 stages one broker's replicas in one CTA's shared memory and keeps a
-# broker's per-disk state in registers of one warp (csrc/intra_broker.cu).
+# K5's balancer stages one broker's replicas in one CTA's shared memory and
+# keeps a broker's per-disk state in registers of one warp; its load mode
+# takes any number of replicas on one broker (csrc/intra_broker.cu).
 INTRA_BROKER_MAX_REPLICAS = 8192
 INTRA_BROKER_MAX_DISKS = 32
 INTRA_BROKER_MAX_BROKERS = 2 ** 20
@@ -243,8 +245,8 @@ def _k5_call(state: ClusterTensors, disks: DiskTensors,
              capacity_threshold: float, upper: float | None,
              max_rounds: int, movable: torch.Tensor | None,
              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One K5 call on the card: (final disk assignment, final per-disk
-    loads [B, D]). ``max_rounds`` 0 computes the loads alone."""
+    """One call of K5's balancer on the card: (final disk assignment,
+    final per-disk loads [B, D])."""
     dev = state.device
     p, s = state.assignment.shape
     b, d = state.num_brokers, disks.max_disks
@@ -296,24 +298,46 @@ def _k5_call(state: ClusterTensors, disks: DiskTensors,
     return out_assign, out_load
 
 
-# What the last K5 call on the card saw (read by chip_smoke.py): the
-# largest replica count of one broker and per-broker tensors.
+# What the last call of K5's balancer on the card saw (read by
+# chip_smoke.py): the largest replica count of one broker and per-broker
+# tensors.
 LAST_CALL: dict = {}
 
 
 def disk_load(state: ClusterTensors, disks: DiskTensors) -> torch.Tensor:
     """[B, D] — DISK load per (broker, disk slot), summed in flat slot
-    order: K5's load mode on the card, the twin's segment sum on the
-    CPU."""
+    order: K5's load mode on the card (no host read), the twin's segment
+    sum on the CPU. The kernel leaves out a slot whose disk is D or more,
+    where the twin would add it to a later broker's disk."""
     dev = state.device
     if dev.type == "cpu":
         return _disk_load_plain(state, disks.disk_assignment,
                                 disks.max_disks)
     if dev.type != "cuda":
-        raise ValueError(f"intra_broker: unsupported device {dev}")
-    _assign, load = _k5_call(state, disks, 0.8, None, 0, None)
+        raise ValueError(f"intra_broker_load: unsupported device {dev}")
+    p, s = state.assignment.shape
+    b, d = state.num_brokers, disks.max_disks
+    if (b > INTRA_BROKER_MAX_BROKERS or d > INTRA_BROKER_MAX_DISKS
+            or p * s >= 2 ** 31 or p * s == 0):
+        raise kernels.limit_error("intra_broker_load",
+                                  f"B={b}, D={d}, P*S={p * s}")
+    req = kernels.requirer("intra_broker_load")
+    load = replica_load_column(state, int(Resource.DISK)).contiguous()
+    ins = (req(state.assignment, dev, torch.int32, (p, s), "assignment"),
+           req(state.partition_mask, dev, torch.bool, (p,), "partition_mask"),
+           req(load, dev, torch.float32, (p, s), "replica_disk_load"),
+           req(disks.disk_assignment, dev, torch.int32, (p, s),
+               "disk_assignment"))
+    lib = kernels.library("intra_broker")
+    words = lib.cc_intra_broker_load_scratch_words(p * s, b)
+    scratch = torch.empty(words, dtype=torch.int32, device=dev)
+    out = torch.empty((b, d), dtype=torch.float32, device=dev)
+    kernels.check(lib.cc_intra_broker_load(
+        *[x.data_ptr() for x in ins], p, s, b, d, out.data_ptr(),
+        scratch.data_ptr(), words, kernels.stream_ptr(dev)),
+        "intra_broker_load")
     kernels.LAUNCHES["intra_broker_load"] += 1
-    return load
+    return out
 
 
 def intra_broker_violations(state: ClusterTensors, disks: DiskTensors,

@@ -555,6 +555,23 @@ def random_placement_disks(assignment, partition_mask, broker_disk_capacity,
             movable)
 
 
+def crowded_broker_case(num_disks: int, seed: int = 0):
+    """``(cluster arrays, disk arrays)``: 12,000 RF-1 partitions on 4
+    brokers, the first 9,000 on broker 1 (more replicas than K5's
+    balancer stages on one broker; its load mode takes them), the rest
+    drawn from ``seed``, every replica on a dir drawn from ``seed`` or
+    none (-1)."""
+    rng = np.random.default_rng(seed)
+    p = 12_000
+    assign = np.where(np.arange(p) < 9_000, 1,
+                      rng.integers(0, 4, p))[:, None].astype(np.int32)
+    cl = disk_cluster_arrays(assign, rng.exponential(50.0, p), 4)
+    return cl, {"disk_assignment": rng.integers(-1, num_disks, (p, 1))
+                .astype(np.int32),
+                "disk_capacity": np.full((4, num_disks), 1e6, np.float32),
+                "disk_alive": np.ones((4, num_disks), bool)}
+
+
 # ---- K6 round inputs ---------------------------------------------------------
 
 # Chains whose goals K6's checks take as active in turn: every one of the

@@ -76,8 +76,8 @@ _FRAME = re.compile(r"^(.*)\((\d+)\): (\S+)$")
 _OWN_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(\w+)(<[^>]*>)?")
 _KERNEL_PARTS = {"weights_kernel": "a", "peak_kernel": "a",
                  "lead_compact_kernel": "a", "lead_rank_kernel": "a",
-                 "lead_pad_kernel": "a", "score_grid_kernel": "b",
-                 "recheck_kernel": "b"}
+                 "lead_pad_kernel": "a", "panel_kernel": "b",
+                 "score_grid_kernel": "b", "recheck_kernel": "b"}
 
 
 # The labelled ranges split_round opens around the kernels' wrappers.

@@ -411,6 +411,54 @@ def test_intra_broker_launches_are_counted_apart(card):
     assert kernels.LAUNCHES["intra_broker_load"] == 2
 
 
+def _disk_load_case(card, cl, dk):
+    """K5's load mode against its twin on a CPU copy, bit for bit, run
+    with PyTorch's sync debug mode set to raise: no host read."""
+    from cruise_control_tpu_torch.model import disks as td
+    state = tt.cluster_from_numpy(cl, card)
+    disks = td.disks_from_numpy(dk, card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = td.disk_load(state, disks)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = td.disk_load(state.to("cpu"), disks.to("cpu"))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    return want
+
+
+@pytest.mark.parametrize("num_disks", [1, 2, 4, 8, 32])
+def test_disk_load_matches_twin(card, num_disks):
+    """Random small cases, a broker above the balancer's 8,192 replicas
+    (the load mode returns its loads) and 60,000 brokers (buckets of 256
+    brokers, ranked by lists)."""
+    from cruise_control_tpu_torch.model import disks as td
+    from cruise_control_tpu_torch.testing import (
+        crowded_broker_case, disk_cluster_arrays, random_disk_case,
+    )
+    for seed in range(10):
+        cl, dk, _mv, _band = random_disk_case(
+            seed, num_brokers=4 + seed % 5, num_partitions=10 + 97 * seed,
+            rf=1 + seed % 3, num_disks=num_disks)
+        _disk_load_case(card, cl, dk)
+    cl, dk = crowded_broker_case(num_disks, seed=num_disks)
+    assert (cl["assignment"] == 1).sum() > td.INTRA_BROKER_MAX_REPLICAS
+    assert float(_disk_load_case(card, cl, dk)[1].sum()) > 0
+    with pytest.raises(ValueError, match="a broker hosts"):
+        td.balance_intra_broker(tt.cluster_from_numpy(cl, card),
+                                td.disks_from_numpy(dk, card))
+    rng = np.random.default_rng(num_disks)
+    b, p = 60_000, 5_000
+    assign = rng.integers(0, b, (p, 3)).astype(np.int32)
+    cl = disk_cluster_arrays(assign, rng.exponential(50.0, p), b)
+    dk = {"disk_assignment": rng.integers(-1, num_disks, (p, 3))
+          .astype(np.int32),
+          "disk_capacity": np.full((b, num_disks), 1e6, np.float32),
+          "disk_alive": np.ones((b, num_disks), bool)}
+    _disk_load_case(card, cl, dk)
+
+
 # ---- K6 score_grid -----------------------------------------------------------
 
 @pytest.mark.parametrize("seed", range(40))
@@ -425,6 +473,33 @@ def test_score_grid_matches_twin_on_random_small_cases(card, seed):
         assert k6_mismatches(rec) == [], (seed, goals[active].name)
     assert kernels.LAUNCHES["score_grid"] >= 2 * len(goals)
     assert kernels.LAUNCHES["score_grid_recheck"] >= 2 * len(goals)
+
+
+@pytest.mark.parametrize("variant", ["no targeted column",
+                                     "odd destinations"])
+def test_score_grid_without_targeted_column_or_with_odd_destinations(
+        card, variant):
+    """K6's grid mode on recorded rounds whose grid has no targeted
+    column (extra = 0) or an odd number of destination columns."""
+    from cruise_control_tpu_torch.testing import (
+        k6_mismatches, k6_random_case, k6_round_inputs,
+    )
+    for seed in range(8):
+        state, topics, goals, masks, cfg = k6_random_case(seed, card)
+        for active in range(len(goals)):
+            rec = k6_round_inputs(state, goals, active, topics, cfg, masks)
+            spec = rec["grid"][8]
+            if variant == "no targeted column":
+                spec = dataclasses.replace(spec, t_dst=None, t_ok=None)
+            else:
+                k = spec.dst_idx.shape[0]
+                k = k - 1 if k % 2 == 0 else k
+                spec = dataclasses.replace(
+                    spec, dst_idx=spec.dst_idx[:k].contiguous(),
+                    dst_val=spec.dst_val[:k].contiguous())
+            grid = rec["grid"][:8] + (spec,) + rec["grid"][9:]
+            assert k6_mismatches({"grid": grid, "recheck": rec["recheck"]}) \
+                == [], (seed, goals[active].name, variant)
 
 
 def test_score_grid_in_a_replayed_block_equals_the_eager_twin(card):

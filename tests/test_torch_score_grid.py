@@ -22,7 +22,12 @@ MinTopicLeadersPerBrokerGoal with a minimum of one.
   ``MAX_GOALS`` raises ``kernels.limit_error``.
 - K6's row functions compiled as host C++ (``csrc/score_grid.cu`` without
   ``__CUDACC__``, where the compiler is present) equal the twin bit for bit
-  on every recorded round, in both modes.
+  on every recorded round, in both modes. In grid mode they run as the
+  kernels do: the destination panel, then the move block's source groups
+  staged (the targeted column read where it lies), then the leadership
+  rows; each recorded grid also runs without its targeted column and with
+  an odd number of destinations. The recorded grids cover every goal
+  family, sources whose ``src_valid`` is false and both block flags.
 """
 
 import ctypes
@@ -410,21 +415,23 @@ def test_kernel_rows_built_for_the_host_equal_the_twin(case,
     assert lib.cc_score_grid_params_bytes() == ctypes.sizeof(sg.GridParams)
     _state, topics, goals, rounds = _recorded(case)
     for active, rec in enumerate(rounds):
-        what = f"{case} {goals[active].name}"
         (state, derived, constraint, gl, aux_list, act, prior, off, spec,
          move_ok, lead_ok, _n, _t) = rec["grid"]
         table = sg.goal_table(gl, aux_list, act, prior, state, derived,
                               constraint)
-        q, outs, _keep = sg.grid_params(state, derived, off, spec, move_ok,
-                                        lead_ok, table, topics)
-        assert lib.cc_score_grid_host(ctypes.byref(q)) == 0
-        got_d, kind, got_a, got_s = outs
-        want_d, want_kind, want_a, want_s = _twin(rec["grid"])
-        for name, want in _delta_fields(want_d).items():
-            _assert_bitwise(getattr(got_d, name), want, f"{what} {name}")
-        _assert_bitwise(kind, want_kind, f"{what} kind")
-        _assert_bitwise(got_a, want_a, f"{what} accept")
-        _assert_bitwise(got_s, want_s, f"{what} score")
+        for label, variant in _grid_variants(spec):
+            what = f"{case} {goals[active].name}, {label}"
+            args = rec["grid"][:8] + (variant,) + rec["grid"][9:]
+            q, outs, _keep = sg.grid_params(state, derived, off, variant,
+                                            move_ok, lead_ok, table, topics)
+            assert lib.cc_score_grid_host(ctypes.byref(q)) == 0
+            got_d, kind, got_a, got_s = outs
+            want_d, want_kind, want_a, want_s = _twin(args)
+            for name, want in _delta_fields(want_d).items():
+                _assert_bitwise(getattr(got_d, name), want, f"{what} {name}")
+            _assert_bitwise(kind, want_kind, f"{what} kind")
+            _assert_bitwise(got_a, want_a, f"{what} accept")
+            _assert_bitwise(got_s, want_s, f"{what} score")
 
         sub, has_earlier = rec["recheck"][7:9]
         sub = dataclasses.replace(sub, **{
@@ -433,4 +440,42 @@ def test_kernel_rows_built_for_the_host_equal_the_twin(case,
                                   topics)
         assert lib.cc_score_grid_host(ctypes.byref(q)) == 0
         _assert_bitwise(ok, sg.recheck_plain(*rec["recheck"][:9]),
-                        f"{what} recheck")
+                        f"{case} {goals[active].name} recheck")
+
+
+def test_host_kernel_cases_cover_every_family_and_flag():
+    """The recorded grids the host build runs on hold every goal family
+    (active or prior), a targeted column, sources whose ``src_valid`` is
+    false, and each block flag both ways."""
+    seen = set()
+    for case in CASES:
+        _state, _topics, goals, rounds = _recorded(case)
+        for active, rec in enumerate(rounds):
+            spec, move_ok, lead_ok = rec["grid"][8:11]
+            seen |= {goals[i].score_args(*rec["grid"][:3],
+                                         rec["grid"][4][i]).family
+                     for i in range(len(goals))
+                     if rec["grid"][6][i] or i == active}
+            seen |= {f"move_ok {move_ok}", f"lead_ok {lead_ok}"}
+            if spec.t_dst is not None:
+                seen.add("targeted column")
+            if not bool(spec.src_valid.all()):
+                seen.add("src_valid false")
+    assert set(Family) <= seen
+    assert {"targeted column", "src_valid false", "move_ok True",
+            "move_ok False", "lead_ok True", "lead_ok False"} <= seen
+
+
+def _grid_variants(spec):
+    """The recorded grid, the same grid without its targeted column
+    (extra 0) and with an odd number of destination columns."""
+    yield "recorded", spec
+    if spec.t_dst is not None:
+        yield "no targeted column", dataclasses.replace(spec, t_dst=None,
+                                                        t_ok=None)
+    k = spec.dst_idx.shape[0]
+    odd = k - 1 if k % 2 == 0 else k - 2
+    if odd > 0:
+        yield f"{odd} destinations", dataclasses.replace(
+            spec, dst_idx=spec.dst_idx[:odd].contiguous(),
+            dst_val=spec.dst_val[:odd].contiguous())
