@@ -26,16 +26,19 @@ launches are counted per replay of each graph.
    and bitwise on the pre-deltas; K6, both modes, bitwise against the
    twin on the card on the first round's inputs and on the first round of
    every goal that ran one; K7 bitwise against its twin on every goal's
-   first move round and first swap round; K2's leadership mode and K8
-   exact on their first calls) and timed with CUDA events and the
-   profiler beside the twin, its bound and, where one exists, a single
-   PyTorch library call.
+   first move round and first swap round: weight, offline mask and flag,
+   and the offline count per broker, which is also held exactly to K1's
+   offline twin on a CPU copy (zeros without the override); K2's
+   leadership mode and K8 exact on their first calls) and timed with
+   CUDA events and the profiler beside the twin, its bound and, where one
+   exists, a single PyTorch library call.
 3. Fused main path: launch counts reset, one steady solve, counts read;
    every hard goal satisfied, balancedness rose, proposals exist, every
-   kernel launched (K1's full and offline modes counted apart; on this
-   and every later main path K7 once per move round and per swap round,
-   K2's leadership mode once per move round, K8 once per swap round as
-   ``last_loop_stats()`` counts them). A profiled solve gives the
+   kernel of the round launched (on this and every later main path K7
+   once per move round and per swap round, K2's leadership mode once per
+   move round, K8 once per swap round as ``last_loop_stats()`` counts
+   them, and K1's offline mode never: K7 counts the round's offline
+   replicas). A profiled solve gives the
    device-busy share.
 4. Fused reference on a small input: 16/512 on the card and on the CPU
    (which the CPU tests hold bit-exact against the JAX package) must agree
@@ -59,9 +62,10 @@ launches are counted per replay of each graph.
    ``solver.dispatch.async.readback=false`` (no speculative dispatch),
    each held to the same reference.
 6. The same fixture with its last 50 brokers DEAD, against its entry: a
-   warm-up solve (which records the first call of K1's offline mode for
-   phase 8), then a steady solve as a main path of its own (launch counts
-   reset and read).
+   warm-up solve (its first move round's K7 call held to the twin, its
+   count to K1's offline twin with offline replicas present; that state
+   is K1's offline mode's direct input in phase 8), then a steady solve
+   as a main path of its own (launch counts reset and read).
 7. The same fixture with the default config (wall-clock adaptive
    dispatch): a warm-up solve (its budgets reach the 64-round aggregate
    refresh, so it captures each goal's refresh variant), a second solve,
@@ -90,7 +94,9 @@ launches are counted per replay of each graph.
    replicas at 1e30) and without that override, K2's leadership mode on
    the same inputs; timed; K8 exact on crafted tie cases. K1's offline
    check fails on an input without offline replicas (an all-zero twin
-   output).
+   output). K7 on one goal of each weight family
+   (``testing.K7_FAMILY_GOALS``), bitwise against its twin, its count
+   exact (offline replicas present), timed beside its bound.
 10. The bounded solve at 7,000 brokers / 1M partitions / 700 topics
     (``bench.py``'s STAGES (7_000, 1_000_000, 0), the targeted column
     off), pinned dispatch: a warm-up solve (the capture) and a steady
@@ -334,7 +340,7 @@ class Recorder:
     for K6's two modes, of the first call of each active goal."""
 
     # The kernels every move round launches (checked on every path).
-    KEYS = ("segment_reduce", "segment_reduce_offline", "select_sources",
+    KEYS = ("segment_reduce", "select_sources",
             "select_batch", "apply_deltas", "score_grid",
             "score_grid_recheck", "slot_weights",
             "select_sources_leadership")
@@ -354,7 +360,6 @@ class Recorder:
         self._wanted = wanted or {}
         self._patches = []
         self._wrap(chain_mod, "compute_agg", "segment_reduce")
-        self._wrap(chain_mod, "offline_per_broker", "segment_reduce_offline")
         self._wrap(chain_mod, "select_sources", "select_sources")
         self._wrap(search_mod, "select_batch", "select_batch")
         self._wrap(chain_mod, "apply_deltas_to_agg", "apply_deltas")
@@ -880,7 +885,8 @@ def k7_cost(slot_mod, args) -> tuple[int, int]:
     """(bytes, f32 operations) of one K7 call, from what the goal's weight
     family reads on this call's data: every family reads the assignment,
     the leader slot, the partition mask and the [B] alive flags, and
-    writes the weight and the offline mask; the per-topic families read
+    writes the weight and the offline mask (and with the override the [B]
+    offline count); the per-topic families read
     the topic, the rack families the [B] racks, and each family its
     descriptor's arrays, once. A load row is counted where the family
     needs it: every existing slot's row for the load families (16 B, or
@@ -902,6 +908,8 @@ def k7_cost(slot_mod, args) -> tuple[int, int]:
     lead = ex & (slots[None, :] == state.leader_slot.long()[:, None])
     nbytes = p * s * 4 + p * 4 + p + b + p * s * (4 + 1) \
         + sum(t.numel() * t.element_size() for t in wa.arrays)
+    if args[6]:
+        nbytes += b * 4
     if wa.family in (fam.TOPIC_DONOR, fam.BROKER_SET):
         nbytes += p * 4
     if wa.family in (fam.RACK_DUPLICATE, fam.KAFKA_ASSIGNER_RACK):
@@ -934,35 +942,61 @@ def k7_cost(slot_mod, args) -> tuple[int, int]:
     return nbytes, p * s * 8
 
 
-def check_k7(slot_mod, args, label: str, timed: bool = False):
+def check_k7(slot_mod, args, label: str, timed: bool = False,
+             want_offline: bool = False):
     """K7 bit for bit against its twin on the card (the twin's ops are
-    elementwise: exact on any device) on one call's recorded inputs; timed
-    beside the twin and the bound of the goal's family when ``timed``."""
+    elementwise: exact on any device) on one call's recorded inputs: the
+    weight, the offline mask and flag, and the offline count per broker,
+    which with the override must also equal K1's offline twin on a CPU
+    copy exactly (zeros without it); with ``want_offline`` the input must
+    hold offline replicas. Timed beside the twin and the bound of the
+    goal's family when ``timed``, and then its device ops a call must be
+    at most 2 (4 for the families with a max pass)."""
     import torch
-    goal, override = args[0], args[6]
+
+    from cruise_control_tpu_torch.analyzer.agg import (
+        offline_per_broker_plain,
+    )
+    goal, state, override = args[0], args[1], args[6]
     got = slot_mod.slot_weights(*args)
     want = slot_mod.slot_weights_plain(*args[:5], override)
-    for name, a, b in zip(("weight", "off", "off_any"), got, want):
+    for name, a, b in zip(("weight", "off", "off_any", "count"), got, want,
+                          strict=True):
         if a.dtype == torch.float32:
             a, b = a.view(torch.int32), b.view(torch.int32)
         if not torch.equal(a, b):
             fail(f"K7 {name} at {label} ({goal.name}, override "
                  f"{override}) differs from its twin")
+    count = got[3].cpu()
+    want_count = offline_per_broker_plain(state.to("cpu")).to(torch.int32) \
+        if override else torch.zeros_like(count)
+    if not torch.equal(count, want_count):
+        fail(f"K7's offline count at {label} ({goal.name}, override "
+             f"{override}) differs from K1's offline twin")
+    offline = int(count.sum())
+    if want_offline and not offline:
+        fail(f"K7 at {label} ({goal.name}): the input has no offline "
+             "replica, so the count check saw only zeros")
     if not timed:
         return None
     nbytes, ops = k7_cost(slot_mod, args)
     family = goal.weight_args(*args[1:5]).family.name
     line = dict(shape=f"{label}, {goal.name} ({family}), override "
                       f"{override}", family=family, max_abs_err=0.0,
-                library_call=None,
+                offline_counted=offline, library_call=None,
                 **measure(lambda: slot_mod.slot_weights(*args),
                           lambda: slot_mod.slot_weights_plain(
                               *args[:5], override), K7_KERNELS, nbytes, ops))
+    ops_limit = 4 if family in ("FIT_PRIORITY", "KAFKA_ASSIGNER_RACK") else 2
     print(f"K7 slot_weights at {line['shape']}: {line['ms']:.4f} ms (device "
           f"{line['device_ms']}, {line['device_launches_per_call']} device "
-          f"ops a call), twin {line['plain_ms']:.4f} ms, bound "
-          f"{line['bound_ms']:.5f} ms ({line['bound_by']}, {nbytes} bytes); "
-          "bitwise equal to the twin")
+          f"ops a call, at most {ops_limit}), twin {line['plain_ms']:.4f} "
+          f"ms, bound {line['bound_ms']:.5f} ms ({line['bound_by']}, "
+          f"{nbytes} bytes); bitwise equal to the twin, {offline} offline "
+          "replicas counted")
+    if line["device_launches_per_call"] > ops_limit:
+        fail(f"K7 at {line['shape']} took "
+             f"{line['device_launches_per_call']} device ops a call")
     return line
 
 
@@ -1125,7 +1159,8 @@ def largest_sort_input(fn) -> int:
 
 def check_round_launches(launches: dict, loop: dict, label: str) -> None:
     """K7 once per move round and per swap round, K2's leadership mode
-    once per move round (as K6's grid) and K8 once per swap round."""
+    once per move round (as K6's grid), K8 once per swap round, and K1's
+    offline mode never (K7 counts the round's offline replicas)."""
     lead = launches.get("select_sources_leadership", 0)
     swap = launches.get("swap_top_replicas", 0)
     if lead != launches.get("score_grid", 0):
@@ -1137,8 +1172,13 @@ def check_round_launches(launches: dict, loop: dict, label: str) -> None:
     if launches.get("slot_weights", 0) != lead + swap:
         fail(f"{label}: K7 ran {launches.get('slot_weights', 0)} times in "
              f"{lead} move and {swap} swap rounds")
+    if launches.get("segment_reduce_offline", 0):
+        fail(f"{label}: K1's offline mode ran "
+             f"{launches['segment_reduce_offline']} times (K7 counts the "
+             "round's offline replicas)")
     print(f"{label}: K7 {lead + swap} launches = {lead} move rounds + {swap} "
-          f"swap rounds (K2 leadership {lead}, K8 {swap})")
+          f"swap rounds (K2 leadership {lead}, K8 {swap}); K1's offline "
+          "mode 0")
 
 
 def outcome_check(name: str, got: dict, want: dict, fields, result) -> None:
@@ -1306,8 +1346,9 @@ def main() -> int:
         from cruise_control_tpu_torch.analyzer import slot_pass as slot_mod
         from cruise_control_tpu_torch.analyzer.candidates import PRE_FIELDS
         from cruise_control_tpu_torch.analyzer.constraint import (
-            OptimizationOptions,
+            BalancingConstraint, OptimizationOptions,
         )
+        from cruise_control_tpu_torch.analyzer.derived import compute_derived
         from cruise_control_tpu_torch.analyzer.goals import ALL_GOALS
         from cruise_control_tpu_torch.analyzer.goals.intra_broker import (
             IntraBrokerDiskCapacityGoal, IntraBrokerDiskUsageDistributionGoal,
@@ -1324,8 +1365,9 @@ def main() -> int:
             cluster_from_numpy, cluster_to_numpy, set_broker_state,
         )
         from cruise_control_tpu_torch.testing import (
-            DISK_OUTCOME_FIELDS, K6_CHAINS, OUTCOME_FIELDS, SENTINEL_CASES,
-            build_fixture, disk_outcome, entry_disks, k2_round_inputs,
+            DISK_OUTCOME_FIELDS, K6_CHAINS, K7_FAMILY_GOALS, OUTCOME_FIELDS,
+            SENTINEL_CASES, build_fixture, disk_outcome, entry_disks,
+            k2_round_inputs, k7_family_goal,
             k4_adversarial_batch, k4_drain_batch, k6_goals, k6_mismatches,
             k6_round_inputs, last_broker_ids,
             crowded_broker_case, load_reference_outcomes, outcome,
@@ -1617,9 +1659,18 @@ def main() -> int:
         loop_drain = loop_summary("bounded steady drain-50",
                                   d_opt.last_loop_stats(), steady=True)
         check_round_launches(launches_drain, loop_drain, "drain-50")
-        if not rec_d.calls["segment_reduce_offline"]:
-            fail("the drain-50 solve never reached K1's offline mode")
-        (drain_offline_state,), _ = rec_d.calls["segment_reduce_offline"][0]
+        # K7's count on the first move round of the drain (its first
+        # goal's, offline replicas present) held to K1's offline twin; its
+        # state is K1's offline mode's direct input in phase 8.
+        drain_k7 = next((a for (_g, override), a in rec_d.k7_calls().items()
+                         if override), None)
+        if drain_k7 is None:
+            fail("the drain-50 solve never ran a move round with the "
+                 "offline override")
+        check_k7(slot_mod, drain_k7, "1k/100k drain-50 first move round",
+                 want_offline=True)
+        drain_offline_state = drain_k7[1]
+        del drain_k7
         drain_k2_args, _ = rec_d.calls["select_sources"][0]
         drain_lead_args, _ = rec_d.calls["select_sources_leadership"][0]
         del rec_d
@@ -1807,6 +1858,24 @@ def main() -> int:
         for case, w, src_b, dst_b in k8_crafted_cases(big, seed=9):
             check_k8(search_mod, (big, w, src_b, dst_b, 4),
                      f"{shapes_7k}, {case}", timed=False)
+        # K7 on one goal of each weight family (the override and the count
+        # where the goal moves replicas; the count must see offline
+        # replicas), held to its twin and timed.
+        big_derived = compute_derived(big)
+        k7_dead = []
+        for family in K7_FAMILY_GOALS:
+            g = k7_family_goal(family, b_big)
+            aux = search_mod.goal_aux(g, big, big_derived,
+                                      BalancingConstraint(),
+                                      big_meta.num_topics)
+            override = not g.leadership_only
+            k7_dead.append(check_k7(
+                slot_mod, (g, big, big_derived, BalancingConstraint(), aux,
+                           big_meta.num_topics, override),
+                f"{shapes_7k}, 50 brokers DEAD", timed=True,
+                want_offline=override))
+            del aux
+        del big_derived
         score, weight = k2_round_inputs(big, big_meta.num_topics,
                                         offline_override=False)
         lines_7k["select_sources_disk"] = check_k2(
@@ -2130,10 +2199,6 @@ def main() -> int:
                   f"{', '.join(where)}")
         # K7 on every goal no solve above gave a round, with and without
         # the offline override.
-        from cruise_control_tpu_torch.analyzer.constraint import (
-            BalancingConstraint,
-        )
-        from cruise_control_tpu_torch.analyzer.derived import compute_derived
         cov_state = set_broker_state(cov_state, torch.arange(95, 100),
                                      BrokerState.DEAD)
         cov_derived = compute_derived(cov_state)
@@ -2213,6 +2278,7 @@ def main() -> int:
         if name == "slot_weights":
             line["families"] = [k7_families[f.name]
                                  for f in slot_mod.FAMILY_ARRAYS]
+            line["families_7k_1m_dead50"] = k7_dead
         line["launches_extra_paths"] = {
             k: v["launches"].get(name, 0) for k, v in extra_paths.items()}
         kernel_lines.append(line)

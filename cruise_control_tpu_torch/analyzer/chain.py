@@ -45,7 +45,7 @@ from ..utils.numerics import VECTOR_SUM_LENGTHS, xla_sum, xla_vector_sum
 from . import agg as agg_mod
 from .agg import (
     AggCarry, apply_deltas_to_agg, compute_agg, maybe_refresh,
-    offline_per_broker, pot_lbi_deltas,
+    pot_lbi_deltas,
 )
 from .candidates import grid_spec, select_sources
 from .constraint import BalancingConstraint
@@ -131,13 +131,13 @@ def _chain_round_body(state: ClusterTensors, agg: AggCarry | None,
     dst_score = goal.dest_score(state, derived, constraint, aux) \
         .to(torch.float32)
     # Self-healing priority: offline replicas are always sources with
-    # maximal weight (1e30, K7's override) for non-leadership goals (the
-    # bonus is added as a zero vector for leadership-only goals, as the
-    # reference does).
-    weight, off, off_any = slot_weights(goal, state, derived, constraint,
-                                        aux, num_topics,
-                                        not goal.leadership_only)
-    off_pb = offline_per_broker(state)
+    # maximal weight (1e30, K7's override) for non-leadership goals, and
+    # each broker's source score gains its offline replicas (K7's int32
+    # count, exact in f32; the bonus is added as a zero vector for
+    # leadership-only goals, as the reference does).
+    weight, off, off_any, off_pb = slot_weights(
+        goal, state, derived, constraint, aux, num_topics,
+        not goal.leadership_only)
     src_score = src_score + (torch.zeros_like(off_pb)
                              if goal.leadership_only else off_pb)
 
@@ -208,8 +208,8 @@ def _chain_swap_body(state: ClusterTensors, agg: AggCarry | None,
     aux = aux_list[active]
     src_score = goal.source_score(state, derived, constraint, aux) \
         .to(torch.float32)
-    weight, _off, _any = slot_weights(goal, state, derived, constraint, aux,
-                                      num_topics, False)
+    weight, *_offline = slot_weights(goal, state, derived, constraint, aux,
+                                     num_topics, False)
     dst_score = goal.swap_dest_score(state, derived, constraint, aux) \
         .to(torch.float32)
 

@@ -16,7 +16,9 @@ loads, its own entry ``cc_intra_broker_load``); so do K6's:
 ``score_grid`` (the candidate grid: a panel launch and a row launch) and
 ``score_grid_recheck`` (the joint recheck of a selected batch); and K2's
 leadership mode counts as ``select_sources_leadership``. K7 counts as
-``slot_weights`` and K8 as ``swap_top_replicas``. A wrapper
+``slot_weights`` (its call also counts the round's offline replicas
+per broker, so the move round no longer runs K1's offline mode) and K8 as
+``swap_top_replicas``. A wrapper
 called while a CUDA graph captures launches nothing then: the capture
 (``utils/graphs.py``) takes those calls out of ``LAUNCHES``, keeps them as
 the graph's launches and adds them back at every replay, so the counts
@@ -139,6 +141,7 @@ _SIGNATURES = {
     "slot_pass": {
         "cc_slot_weights": [_VP, _VP],
         "cc_slot_weights_params_bytes": ([], ctypes.c_longlong),
+        "cc_slot_weights_scratch_head": ([], _I),
     },
     "swap_select": {
         "cc_swap_top_replicas": [_VP] * 4 + [_I] * 4 + [_VP] * 4,
@@ -195,8 +198,9 @@ LIMITS = {
     "score_grid": "<= 24 goals in the table (prior and active; the "
                   "parameters are passed by value), S <= 64 slots, "
                   "0 < P*S < 2**31 and fewer than 2**31 rows",
-    "slot_weights": "S <= 16 slots a partition (one thread compares a "
-                    "partition's slots pairwise) and 0 < P*S < 2**31",
+    "slot_weights": "S <= 16 slots a partition (one thread holds a "
+                    "partition's slots in registers and compares them "
+                    "pairwise) and 0 < P*S < 2**31; any broker count",
     "swap_top_replicas": "k <= 8 brokers a side, j <= 4 replicas a "
                          "broker and j <= P*S < 2**31",
 }

@@ -9,8 +9,9 @@ and checked by
 port's card run against them without importing JAX. The module also
 holds what the card checks and the tests share: the kernels' adversarial
 inputs, the swap grid's inputs, the CUDA-graph capture that counts a
-call's launches, and the JBOD disk fixtures of K5 (``jbod_disks``,
-``sentinel_case``, ``random_disk_case``), all built from numpy alone.
+call's launches, the JBOD disk fixtures of K5 (``jbod_disks``,
+``sentinel_case``, ``random_disk_case``), all built from numpy alone, and
+K7's goal of each weight family (``K7_FAMILY_GOALS``).
 
 :func:`outcome` summarises a solve in the file's form. It reads only the
 attributes both packages' ``OptimizerResult`` share and numpy copies of
@@ -342,6 +343,40 @@ def k2_round_inputs(state, num_topics: int,
                              torch.full((), 1e30, device=state.device),
                              weight)
     return score, weight
+
+
+# One goal of each K7 weight family (goals/base.py WeightFamily): the
+# goal whose round times the family.
+K7_FAMILY_GOALS = {
+    "LOAD_TOTAL": "MinTopicLeadersPerBrokerGoal",
+    "NEG_LOAD_TOTAL": "ReplicaDistributionGoal",
+    "LOAD_COLUMN": "DiskCapacityGoal",
+    "FIT_PRIORITY": "DiskUsageDistributionGoal",
+    "LEADER_LOAD": "PotentialNwOutGoal",
+    "TOPIC_DONOR": "TopicReplicaDistributionGoal",
+    "RACK_DUPLICATE": "RackAwareGoal",
+    "PREFERRED_LEADER": "PreferredLeaderElectionGoal",
+    "BROKER_SET": "BrokerSetAwareGoal",
+    "KAFKA_ASSIGNER_RACK": "KafkaAssignerEvenRackAwareGoal",
+}
+
+
+def k7_family_goal_args(family: str, num_brokers: int) -> tuple[str, dict]:
+    """The name and arguments of ``K7_FAMILY_GOALS[family]``, with what its
+    family needs to weigh anything: BrokerSetAwareGoal on sets of broker
+    index mod 4, MinTopicLeadersPerBrokerGoal at two leaders."""
+    name = K7_FAMILY_GOALS[family]
+    kwargs = {"BrokerSetAwareGoal": {"broker_sets": tuple(
+        b % 4 for b in range(num_brokers))},
+        "MinTopicLeadersPerBrokerGoal": {"min_leaders": 2}}.get(name, {})
+    return name, kwargs
+
+
+def k7_family_goal(family: str, num_brokers: int):
+    """The goal of ``K7_FAMILY_GOALS[family]``."""
+    from ..analyzer.goals import ALL_GOALS
+    name, kwargs = k7_family_goal_args(family, num_brokers)
+    return ALL_GOALS[name](**kwargs)
 
 
 def swap_grid_inputs(state, num_topics: int,

@@ -1,8 +1,8 @@
-"""Device time of K5's load mode and K6's grid mode on one GPU, for one or
-more checkouts of the port, in turns.
+"""Device time of K5's load mode, K6's grid mode and K7 on one GPU, for
+one or more checkouts of the port, in turns.
 
     python3 -m cruise_control_tpu_torch.testing.kernel_times ROOT \
-        [ROOT ...] [--turns N]
+        [ROOT ...] [--turns N] [--k7-only]
 
 Each ROOT is a directory that holds a ``cruise_control_tpu_torch``
 package: this checkout, or an unpacked ``git archive`` of another commit.
@@ -19,10 +19,21 @@ untraced ones), the device time a call of the named kernels, per record:
   TopicReplicaDistributionGoal (12 goals prior), every earlier goal of the
   default chain prior, at 7k/1M (2,048 sources, 512 destinations) and at
   1k/100k (2,048 sources, 250 destinations);
+- ``slot_weights`` (K7) at 7,000 brokers / 1M partitions / 700 topics with
+  the last 50 brokers DEAD, on the goal of each weight family
+  (``testing.K7_FAMILY_GOALS``), with the offline override and count
+  where the goal moves replicas; and, for RackAwareGoal, a LOAD_TOTAL
+  and a FIT_PRIORITY goal, the round's offline work: K7's call plus, in a
+  checkout whose K7 returns no count, K1's offline mode
+  (``agg.offline_per_broker``), as that checkout's round runs them. Each
+  K7 timing is taken twice: with the inputs left in L2 by the call before
+  (``k7_...``) and with L2 flushed before every call (``k7_cold_...``: a
+  256 MB add, untimed, as a round's earlier kernels leave K7's inputs
+  mostly out of the 50 MB L2).
 
-and prints one JSON line a root and turn (the grid's rows, the ms of each
-kernel by name, their sum). The card's name and power limit come first.
-Needs a CUDA device; imports nothing of JAX.
+``--k7-only`` times K7 alone. Prints one JSON line a root and turn (the
+grid's rows, the ms of each kernel by name, their sum). The card's name
+and power limit come first. Needs a CUDA device; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -36,10 +47,17 @@ _CHILD = r"""
 import json, sys
 import torch
 from torch.profiler import ProfilerActivity, profile, schedule
+from cruise_control_tpu_torch.analyzer import agg as agg_mod
 from cruise_control_tpu_torch.analyzer import score_grid as sg
-from cruise_control_tpu_torch.analyzer.search import SearchConfig
+from cruise_control_tpu_torch.analyzer import slot_pass
+from cruise_control_tpu_torch.analyzer.constraint import BalancingConstraint
+from cruise_control_tpu_torch.analyzer.derived import compute_derived
+from cruise_control_tpu_torch.analyzer.goals import ALL_GOALS
+from cruise_control_tpu_torch.analyzer.search import SearchConfig, goal_aux
 from cruise_control_tpu_torch.model import disks as disks_mod
-from cruise_control_tpu_torch.model.tensors import cluster_to_numpy
+from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
+from cruise_control_tpu_torch.model.tensors import (
+    cluster_to_numpy, set_broker_state)
 from cruise_control_tpu_torch.testing import (
     build_fixture, entry_disks, k6_goals, k6_round_inputs,
     load_reference_outcomes)
@@ -47,7 +65,10 @@ if not torch.cuda.is_available():
     sys.exit("kernel_times needs a CUDA device")
 NAMES = ("count_kernel", "scan_kernel", "scatter_kernel", "balance_kernel",
          "place_kernel", "fold_kernel", "Memset (", "Memcpy DtoD",
-         "panel_kernel", "score_grid_kernel")
+         "panel_kernel", "score_grid_kernel", "weights_kernel", "peak_kernel",
+         "to_float_kernel")
+FAMILY_GOALS, K7_ONLY = json.loads(sys.argv[1]), sys.argv[2] == "1"
+OFFLINE_WORK = ("RACK_DUPLICATE", "LOAD_TOTAL", "FIT_PRIORITY")
 REPS = 20
 
 
@@ -76,6 +97,49 @@ def device_ms(fn):
 dev = torch.device("cuda")
 refs = load_reference_outcomes()
 out = {}
+big, big_meta = random_cluster(7000, 700, 1_000_000, rf=3, num_racks=8,
+                               seed=42, skew_to_first=2.0,
+                               target_utilization=0.55,
+                               dist=Dist.EXPONENTIAL, device=dev)
+big = set_broker_state(big, torch.arange(6950, 7000), 1)
+topics = big_meta.num_topics
+derived = compute_derived(big)
+flush = torch.zeros(64 << 20, dtype=torch.int32, device=dev)
+
+
+def cold(fn):
+    def run():
+        flush.add_(1)
+        return fn()
+    return run
+
+
+for family, (name, kwargs) in FAMILY_GOALS.items():
+    goal = ALL_GOALS[name](**{k: tuple(v) if isinstance(v, list) else v
+                              for k, v in kwargs.items()})
+    aux = goal_aux(goal, big, derived, BalancingConstraint(), topics)
+    override = not goal.leadership_only
+
+    def k7():
+        return slot_pass.slot_weights(goal, big, derived,
+                                      BalancingConstraint(), aux, topics,
+                                      override)
+
+    def offline_work():
+        if len(k7()) == 3:
+            agg_mod.offline_per_broker(big)
+
+    for tag, wrap in (("", lambda fn: fn), ("_cold", cold)):
+        out[f"k7{tag}_7k_1m_dead50_{family}"] = dict(
+            goal=name, override=override, **device_ms(wrap(k7)))
+        if family in OFFLINE_WORK:
+            out[f"offline_work{tag}_7k_1m_dead50_{family}"] = dict(
+                goal=name, **device_ms(wrap(offline_work)))
+    del aux
+del big, derived, flush
+if K7_ONLY:
+    print(json.dumps(out))
+    sys.exit(0)
 ref = refs["7k_1m_rebalance_disk"]
 state, meta = build_fixture(ref, dev)
 disks = disks_mod.disks_from_numpy(entry_disks(ref, cluster_to_numpy(state)),
@@ -107,7 +171,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--turns", type=int, default=2)
+    ap.add_argument("--k7-only", action="store_true")
     args = ap.parse_args()
+    from . import K7_FAMILY_GOALS, k7_family_goal_args
+    families = {f: k7_family_goal_args(f, 7000) for f in K7_FAMILY_GOALS}
+    child_args = [json.dumps(families), "1" if args.k7_only else "0"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -115,7 +183,8 @@ def main() -> int:
     print(card, flush=True)
     for turn in range(args.turns):
         for root in args.roots if turn % 2 == 0 else args.roots[::-1]:
-            res = subprocess.run([sys.executable, "-c", _CHILD], cwd=root,
+            res = subprocess.run([sys.executable, "-c", _CHILD,
+                                  *child_args], cwd=root,
                                  capture_output=True, text=True)
             if res.returncode != 0:
                 print(res.stderr[-4000:], file=sys.stderr)

@@ -16,9 +16,11 @@ every device op is charged, by the innermost function of the package
 that launched it, to
 
 - ``a``: the P*S-wide per-slot passes (``replica_weight``,
-  ``offline_replicas``, ``on_source`` and the leadership block's stable
-  top-k over P*S keys; K7 ``slot_weights`` and K2's leadership mode
-  where they run);
+  ``offline_replicas``, the offline count per broker, ``on_source`` and
+  the leadership block's stable top-k over P*S keys; K7
+  ``slot_weights``, which also counts the offline replicas, and K2's
+  leadership mode where they run, and K1's offline mode where the round
+  still runs it);
 - ``b``: the grid-wide scoring (the candidate layout, ``compute_deltas``,
   every goal's acceptance and improvement, the offline bonus, the joint
   recheck; K6 ``score_grid`` where it runs);
@@ -57,6 +59,7 @@ import time
 # and its first line, not the line running.)
 _FUNCS = {
     "replica_weight": "a", "offline_replicas": "a", "on_source": "a",
+    "offline_per_broker": "a",
     "leadership_sources": "a", "slot_weights": "a",
     "compute_deltas": "b", "acceptance": "b", "improvement": "b",
     "recheck": "b", "score_grid": "b", "score_grid_plain": "b",
@@ -71,10 +74,11 @@ _MIXED = ("generate_candidates", "grid_spec", "_chain_round_body")
 _FRAME = re.compile(r"^(.*)\((\d+)\): (\S+)$")
 # The port's own kernels (csrc/*.cu, every one in an anonymous namespace)
 # are launched through ctypes: the trace links no PyTorch op to them, so
-# their device events are charged by name: K7 and K2's leadership mode
-# to a, K6 to b, the others to c.
+# their device events are charged by name: K7, K1's offline mode and K2's
+# leadership mode to a, K6 to b, the others to c.
 _OWN_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(\w+)(<[^>]*>)?")
 _KERNEL_PARTS = {"weights_kernel": "a", "peak_kernel": "a",
+                 "offline_count_kernel": "a", "to_float_kernel": "a",
                  "lead_compact_kernel": "a", "lead_rank_kernel": "a",
                  "lead_pad_kernel": "a", "panel_kernel": "b",
                  "score_grid_kernel": "b", "recheck_kernel": "b"}

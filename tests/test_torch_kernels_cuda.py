@@ -582,6 +582,9 @@ def _bitwise(a, b, what):
     assert torch.equal(a, b), what
 
 
+K7_OUTPUTS = ("weight", "off", "off_any", "count")
+
+
 @pytest.mark.parametrize("name", sorted(ALL_GOALS))
 def test_slot_weights_matches_twin_for_every_goal(card, name):
     """K7 bit for bit against its twin on a CPU copy, with and without the
@@ -602,7 +605,7 @@ def test_slot_weights_matches_twin_for_every_goal(card, name):
         want = slot_pass.slot_weights_plain(goal, state, derived,
                                             BalancingConstraint(), aux,
                                             override)
-        for g, w, what in zip(got, want, ("weight", "off", "off_any")):
+        for g, w, what in zip(got, want, K7_OUTPUTS, strict=True):
             _bitwise(g, w, f"{name} override={override} {what}")
     assert kernels.LAUNCHES["slot_weights"] == 2
 
@@ -628,8 +631,59 @@ def test_slot_weights_at_7k_brokers_1m_partitions(k2_states, name):
         want = slot_pass.slot_weights_plain(goal, state, derived,
                                             BalancingConstraint(), aux,
                                             override)
-        for g, w, what in zip(got, want, ("weight", "off", "off_any")):
+        for g, w, what in zip(got, want, K7_OUTPUTS, strict=True):
             _bitwise(g, w, f"{name} override={override} {what}")
+        assert bool(got[3].any()) == override
+
+
+@pytest.mark.parametrize("shape", ["1k_100k_drain50", "7k_1m_dead50",
+                                   "60k_brokers"])
+def test_slot_weights_offline_count_matches_twin(k2_states, shape):
+    """K7's per-broker offline count exactly equal to K1's offline twin on
+    a CPU copy, on the drain-50 fixture, at 7k/1M with 50 brokers DEAD
+    and at 60,000 brokers (every 997th DEAD: more brokers than any
+    shared-memory table could hold), with no host synchronisation."""
+    from cruise_control_tpu_torch.analyzer import derived as tderived
+    from cruise_control_tpu_torch.analyzer import slot_pass
+    from cruise_control_tpu_torch.testing import (
+        build_fixture, disk_cluster_arrays, load_reference_outcomes,
+    )
+    dev = torch.device("cuda")
+    if shape == "1k_100k_drain50":
+        state, meta = build_fixture(
+            load_reference_outcomes()["1k_100k_drain50"], dev)
+        topics = meta.num_topics
+    elif shape == "7k_1m_dead50":
+        state, meta = k2_states[shape]
+        topics = meta.num_topics
+    else:
+        rng = np.random.default_rng(60)
+        b, p = 60_000, 200_000
+        cl = disk_cluster_arrays(rng.integers(0, b, (p, 3)),
+                                 rng.exponential(50.0, p), b)
+        cl["broker_state"][::997] = 1
+        state, topics = tt.cluster_from_numpy(cl, dev), 1
+    host = state.to("cpu")
+    want = tagg.offline_per_broker_plain(host).to(torch.int32)
+    assert int(want.sum()) > 0
+    # The derived state and the goals' aux on the host (K1's full mode,
+    # which the card's would run, takes at most 16,384 brokers).
+    host_derived = tderived.compute_derived(host)
+    derived = _to(host_derived, dev)
+    for name in ("RackAwareGoal", "DiskUsageDistributionGoal"):
+        goal = _goal(name, state.num_brokers)
+        aux = _to(tsearch.goal_aux(goal, host, host_derived,
+                                   BalancingConstraint(), topics), dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = slot_pass.slot_weights(goal, state, derived,
+                                         BalancingConstraint(), aux, topics,
+                                         True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert torch.equal(got[3].cpu(), want), f"{shape} {name}"
+        assert bool(got[2])
 
 
 def _lead_inputs(state, meta, kind, seed=5):
@@ -724,3 +778,5 @@ def test_round_and_swap_launches_are_counted(card):
     assert n["swap_top_replicas"] > 0
     assert n["slot_weights"] == n["select_sources_leadership"] \
         + n["swap_top_replicas"]
+    # K7 counts the round's offline replicas: K1's offline mode is off it.
+    assert n["segment_reduce_offline"] == 0

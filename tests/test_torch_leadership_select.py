@@ -86,13 +86,13 @@ def _leadership_inputs(case, kind):
     src = rng.uniform(-1.0, 1.0, b).astype(np.float32)
     if kind == "goal":
         _jg, tg, _ja, targs = _goal_world(case, "LeaderReplicaDistributionGoal")
-        w, _off, _any = slot_pass.slot_weights_plain(tg, *targs, True)
+        w, _off, _any, _pb = slot_pass.slot_weights_plain(tg, *targs, True)
         return src, w.numpy()
     if kind == "offline_ties":
         # Every offline replica at 1e30, as the override gives them; the
         # dead brokers' leaders tie on it.
         _jg, tg, _ja, targs = _goal_world(case, "DiskUsageDistributionGoal")
-        w, _off, _any = slot_pass.slot_weights_plain(tg, *targs, True)
+        w, _off, _any, _pb = slot_pass.slot_weights_plain(tg, *targs, True)
         src[list(CASES[case][3])] = 5.0
         return src, w.numpy()
     if kind == "all_ties":
