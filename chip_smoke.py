@@ -15,7 +15,8 @@ launches are counted per replay of each graph.
 
 1. Print the card's name and power limit, build the eight CUDA kernel
    libraries (one nvcc per source, all started together) and print the
-   build time.
+   build time and each kernel's registers, stack and spills from
+   ``ptxas -v`` (and K3's shared memory a CTA at its cap).
 2. Fused path, 100 brokers / 10k partitions / RF 3 / 8 racks
    (``_run_stage``): a warm-up solve (the capture) recording the real
    inputs of the kernels of its rounds (the eager round before each
@@ -23,7 +24,9 @@ launches are counted per replay of each graph.
    kernel held against its plain PyTorch twin on those inputs (K1 and K4
    bit for bit against the twin run on a CPU copy, which sums in the
    reference's index order; K2 exact; K3 exact on idx/part_ok/has_earlier
-   and bitwise on the pre-deltas; K6, both modes, bitwise against the
+   and bitwise on every f32 field it writes (the selected rows, the
+   pre-deltas, pot and lbi), at most 3 device ops a call with its
+   wrapper's; K6, both modes, bitwise against the
    twin on the card on the first round's inputs and on the first round of
    every goal that ran one; K7 bitwise against its twin on every goal's
    first move round and first swap round: weight, offline mask and flag,
@@ -64,7 +67,8 @@ launches are counted per replay of each graph.
 6. The same fixture with its last 50 brokers DEAD, against its entry: a
    warm-up solve (its first move round's K7 call held to the twin, its
    count to K1's offline twin with offline replicas present; that state
-   is K1's offline mode's direct input in phase 8), then a steady solve
+   is K1's offline mode's direct input in phase 8; K3 held to its twin on
+   its first round), then a steady solve
    as a main path of its own (launch counts reset and read).
 7. The same fixture with the default config (wall-clock adaptive
    dispatch): a warm-up solve (its budgets reach the 64-round aggregate
@@ -169,6 +173,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -226,6 +231,23 @@ def _dev_us(evt, self_only: bool) -> float:
     return 0.0
 
 
+def profiled_calls(fn, reps: int):
+    """The profiler's per-op averages over ``reps`` calls of ``fn`` after
+    one skipped and two warm-up steps (a trace started without them loses
+    the events of its first calls once the process has traced before)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=2, active=reps)) as prof:
+        for _ in range(3 + reps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return prof.key_averages()
+
+
 def device_ms(fn, kernel_names, reps: int = REPS):
     """(device time per call of the named CUDA kernels, their device
     launches per call), from a torch.profiler trace of ``reps`` calls
@@ -239,17 +261,7 @@ def device_ms(fn, kernel_names, reps: int = REPS):
     each op is counted ``round(records / reps)`` times a call (at least
     once) and timed at its mean per record: exact when nothing was lost,
     and not biased low by what was. A loss is printed."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=2, active=reps)) as prof:
-        for _ in range(3 + reps):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    mine = [e for e in prof.key_averages() if e.count
+    mine = [e for e in profiled_calls(fn, reps) if e.count
             and any(n in e.key for n in kernel_names)]
     per_call = {e.key: max(1, round(e.count / reps)) for e in mine}
     total = sum(_dev_us(e, False) / e.count * per_call[e.key] for e in mine)
@@ -449,8 +461,9 @@ K1_OFFLINE_KERNELS = ["offline_count_kernel", "to_float_kernel"]
 # destination; "cudaMemsetAsync" is the host's).
 K2_KERNELS = ["digit_kernel", "seed_kernel", "compact_kernel", "rank_kernel",
               "broker_kernel", "Memset ("]
-K3_KERNELS = ["reduce_rows_kernel", "topk_gather_kernel", "dedupe_kernel",
-              "ranks_kernel", "scan_kernel"]
+# K3: the reduce (and the picked fields' records), then the select
+# cluster.
+K3_KERNELS = ["reduce_rows_kernel", "select_kernel"]
 K4_KERNELS = ["carry_copy_kernel", "event_fold_kernel"]
 # K5's kernels, the memset of its counts and the copy of the input disks.
 K5_KERNELS = ["count_kernel", "scan_kernel", "scatter_kernel",
@@ -605,34 +618,54 @@ def check_k2(candidates_mod, args, label: str) -> dict:
     return line
 
 
-def check_k3(search_mod, pre_fields, call, label: str) -> dict:
-    """K3 exact on idx/part_ok/has_earlier and bitwise on the
-    pre-deltas."""
-    import torch
+def device_ops(fn, reps: int = REPS) -> int:
+    """Device ops a call of everything ``fn`` launches (the port's kernels,
+    the wrapper's own PyTorch ops, memsets, copies), each op counted
+    ``round(records / reps)`` times a call, at least once, as in
+    ``device_ms`` (a trace can lose records)."""
+    return sum(max(1, round(e.count / reps)) for e in profiled_calls(fn, reps)
+               if e.count and str(getattr(e, "device_type", "")).endswith(
+                   "CUDA"))
+
+
+def check_k3(search_mod, call, label: str, timed: bool = True):
+    """K3 against its twin: idx, part_ok and has_earlier exactly, and bit
+    for bit every f32 output it writes (the selected rows' CandidateDeltas
+    fields, the pre-deltas, pot and lbi). Timed: its device ops a call,
+    the kernels' and the wrapper's own together (at most 3), and its
+    times beside its twin and its bound."""
+    from cruise_control_tpu_torch.testing import k3_mismatches
     args, kwargs = call
     got = search_mod.select_batch(*args, **kwargs)
     want = search_mod.select_batch_plain(*args, **kwargs)
-    for name, a, b in (("idx", got[0], want[0]), ("part_ok", got[1], want[1]),
-                       ("has_earlier", got[3], want[3])):
-        if not torch.equal(a, b):
-            fail(f"K3 {name} at {label} differs from its twin")
-    for name in ("pre_src_load", "pre_dst_load") + pre_fields:
-        if not torch.equal(getattr(got[2], name), getattr(want[2], name)):
-            fail(f"K3 {name} at {label} is not bitwise equal to its twin")
+    bad = k3_mismatches(got, want)
+    if bad:
+        fail(f"K3 at {label}: {', '.join(bad)} differ from its twin")
     layout, m = args[3], args[4]
     rows = sum(r for r, _c in layout)
     kk = min(m, rows)
     score = args[2]
     print(f"K3 select_batch at {label}: ok ({rows} rows, m={kk}, "
-          f"{int(got[1].sum())} considered rows; exact, pre-deltas bitwise)")
-    nbytes = score.numel() * 4 + kk * (6 * 4 + 4 * 4 + 2 * 4) \
-        + kk * (4 + 1 + 1 + 8 * 4 + 9 * 4)
+          f"{int(got[1].sum())} considered rows, {int(got[3].sum())} with "
+          "an earlier one; exact, every f32 output bitwise)")
+    if not timed:
+        return None
+    ops_a_call = device_ops(lambda: search_mod.select_batch(*args, **kwargs))
+    print(f"  K3 at {label}: {ops_a_call} device ops a call (kernels and "
+          "wrapper)")
+    if ops_a_call > 3:
+        fail(f"K3 at {label}: {ops_a_call} device ops a call (at most 3)")
+    # Each input read once: the scores, the picked rows' fields (eight
+    # int32, valid, four loads) and two leader loads; each output written
+    # once (int32 [9, k], f32 [23k], bool [3, k]).
+    nbytes = score.numel() * 4 + kk * (8 * 4 + 1 + 4 * 4 + 2 * 4) \
+        + kk * (9 * 4 + 23 * 4 + 3)
     # What the function needs, not what this kernel does: one compare per
     # score for the per-source reduce, and a sort of the kk picked keys
     # for the dedupe and the grouped positions.
     ops = score.numel() + kk * max(1, math.ceil(math.log2(max(kk, 2))))
     return dict(shape=f"{label}: {rows} rows x {layout}, m={kk}",
-                max_abs_err=0.0,
+                max_abs_err=0.0, device_ops_per_call=ops_a_call,
                 **measure(lambda: search_mod.select_batch(*args, **kwargs),
                           lambda: search_mod.select_batch_plain(*args,
                                                                 **kwargs),
@@ -1344,7 +1377,6 @@ def main() -> int:
         from cruise_control_tpu_torch.analyzer import score_grid as sg_mod
         from cruise_control_tpu_torch.analyzer import search as search_mod
         from cruise_control_tpu_torch.analyzer import slot_pass as slot_mod
-        from cruise_control_tpu_torch.analyzer.candidates import PRE_FIELDS
         from cruise_control_tpu_torch.analyzer.constraint import (
             BalancingConstraint, OptimizationOptions,
         )
@@ -1395,9 +1427,19 @@ def main() -> int:
         print(f"kernel build: {time.time() - t0:.2f} s "
               f"({len(reports)} libraries built)")
         for name, log in reports.items():
+            kernel = ""
             for line in log.splitlines():
+                entry = re.search(r"Compiling entry function '.*?\d([a-z_]+"
+                                  r"_kernel)", line)
+                if entry:
+                    kernel = entry.group(1)
                 if "registers" in line or "spill" in line:
-                    print(f"  ptxas {name}: {line.strip()}")
+                    print(f"  ptxas {name} {kernel}: {line.strip()}")
+        k3_smem = kernels.library("select_batch").cc_select_batch_smem_bytes(
+            CAP_ROWS, CAP_M)
+        print(f"  ptxas select_batch select_kernel: dynamic shared memory "
+              f"{k3_smem:,} bytes a CTA at {CAP_ROWS} rows, m = {CAP_M} "
+              "(a cluster of four CTAs)")
 
     cfg = CruiseControlConfig()
     opt = GoalOptimizer(cfg, device="cuda")
@@ -1427,7 +1469,7 @@ def main() -> int:
                                       shapes_100),
             "select_sources": check_k2(
                 cand_mod, rec.calls["select_sources"][0][0], shapes_100),
-            "select_batch": check_k3(search_mod, PRE_FIELDS,
+            "select_batch": check_k3(search_mod,
                                      rec.calls["select_batch"][0],
                                      shapes_100),
             "apply_deltas": check_k4(agg_mod, rec.calls["apply_deltas"][0],
@@ -1669,6 +1711,8 @@ def main() -> int:
                  "offline override")
         check_k7(slot_mod, drain_k7, "1k/100k drain-50 first move round",
                  want_offline=True)
+        check_k3(search_mod, rec_d.calls["select_batch"][0],
+                 "1k/100k drain-50 first round", timed=False)
         drain_offline_state = drain_k7[1]
         del drain_k7
         drain_k2_args, _ = rec_d.calls["select_sources"][0]
@@ -1797,7 +1841,7 @@ def main() -> int:
                 cand_mod, drain_k2_args,
                 f"{shapes_1k} drain-50 first call (offline replicas at "
                 "1e30)"),
-            "select_batch": check_k3(search_mod, PRE_FIELDS,
+            "select_batch": check_k3(search_mod,
                                      rec.picked["select_batch"],
                                      f"{shapes_1k} cap"),
             "apply_deltas": check_k4(agg_mod, rec.picked["apply_deltas"],
@@ -1962,7 +2006,7 @@ def main() -> int:
         if extra:
             fail("K3 at 7k/1M ran with the targeted column on")
         lines_7k["select_batch"] = check_k3(
-            search_mod, PRE_FIELDS, k3_call,
+            search_mod, k3_call,
             f"{shapes_7k} cap, targeted column off")
         del k3_call, k3_args, k3_kwargs
         torch.cuda.synchronize()

@@ -8,12 +8,16 @@ candidates, keeps per source row its best destination, takes the top-m
 rows, dedupes partitions, attaches the cumulative pre-deltas of earlier
 rows, rechecks every stacked goal jointly, caps the batch and applies it.
 
-K3 ``select_batch`` runs that selection up to the recheck in five
+K3 ``select_batch`` runs that selection up to the recheck in two
 launches: per-row best column inside the 1% tie window with the rotation
-rule (a warp per row), top-m of the reduced scores, partition dedupe by
-first rank, the exclusive cumulative pre-deltas and ``has_earlier``. On a CUDA
-tensor the wrapper launches ``csrc/select_batch.cu``; on a CPU tensor it
-runs the plain twin (the reference's ops, association included).
+rule (a warp per row, which also gathers the row's fields at its pick),
+then a cluster of four CTAs that takes the top-m of the reduced scores,
+dedupes partitions by first rank, finds ``has_earlier`` and the exclusive
+cumulative pre-deltas and writes the selected rows (every
+``CandidateDeltas`` field, pot and lbi) into buffers the wrapper
+allocates. On a CUDA tensor the wrapper launches ``csrc/select_batch.cu``;
+on a CPU tensor it runs the plain twin (the reference's ops, association
+included).
 
 K8 ``swap_top_replicas`` picks the swap grid's replicas: the j heaviest
 of each source broker and the j lightest of each destination broker, in
@@ -23,6 +27,7 @@ its twin, ``_per_broker_top_replicas`` for each side.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -44,6 +49,15 @@ _EPS_IMPROVEMENT = 1e-9
 # grids reach 2,048 move + 2,048 leadership rows and m = 2,048.
 SELECT_BATCH_MAX_ROWS = 4096
 SELECT_BATCH_MAX_M = 2048
+SELECT_BATCH_MAX_BROKERS = 1 << 20
+_VP = ctypes.c_void_p
+_K3_INPUTS = ("score", "partition", "src_broker", "dst_broker", "topic",
+              "replica_delta", "leader_delta", "load_delta", "src_slot",
+              "dst_slot", "valid", "leader_load")
+# The int32 output block's rows after ``idx``, and the bool block's.
+_K3_INT_FIELDS = ("src_broker", "dst_broker", "replica_delta",
+                  "leader_delta", "partition", "topic", "src_slot",
+                  "dst_slot")
 _OFFLINE_BONUS = 1e12
 # Relative width of the "effectively tied" window of reduce_per_source.
 _TIE_WINDOW = 0.01
@@ -148,6 +162,83 @@ def select_batch_plain(state: ClusterTensors, deltas: CandidateDeltas,
     return idx, part_ok, sub, has_earlier, pot, lbi
 
 
+class SelectBatchParams(ctypes.Structure):
+    """K3's parameter block (``SelectParams`` in csrc/select_batch.cu):
+    the grid's inputs, the shapes, and three output blocks: int32 [9, k]
+    (idx, then ``_K3_INT_FIELDS``), f32 [23k] (load_delta [k, 4], pot,
+    lbi, pre_load [2, k, 4], the ``PRE_FIELDS`` [9, k]) and bool [3, k]
+    (part_ok, has_earlier, valid)."""
+
+    _fields_ = ([(f, _VP) for f in _K3_INPUTS]
+                + [(f, ctypes.c_int32) for f in (
+                    "r0", "c0", "r1", "c1", "extra_last_col", "k",
+                    "num_partitions", "num_brokers")]
+                + [(f, _VP) for f in ("ints", "floats", "flags", "scratch")]
+                + [("scratch_bytes", ctypes.c_longlong)])
+
+
+def select_batch_params(state: ClusterTensors, deltas: CandidateDeltas,
+                        score: torch.Tensor, layout, m: int,
+                        extra_last_col: bool = False):
+    """Check one K3 call's arguments on ``score``'s device and allocate
+    its outputs: (params, (ints, floats, flags, scratch)). The buffers
+    must outlive the launch."""
+    dev = score.device
+    if len(layout) != 2:
+        raise ValueError("select_batch kernel: expects the move and the "
+                         "leadership block")
+    (r0, c0), (r1, c1) = layout
+    n = r0 + r1
+    k = min(m, n)
+    if n > SELECT_BATCH_MAX_ROWS or k > SELECT_BATCH_MAX_M or k < 1 \
+            or state.num_brokers >= SELECT_BATCH_MAX_BROKERS:
+        raise kernels.limit_error(
+            "select_batch", f"{n} reduced rows, m={k}, "
+            f"B={state.num_brokers}")
+    req = kernels.requirer("select_batch")
+    p = state.num_partitions
+    i32, f32 = torch.int32, torch.float32
+    n_cand = r0 * c0 + r1 * c1
+    types = {"score": f32, "load_delta": f32, "valid": torch.bool}
+    ins = {name: req(score if name == "score" else getattr(deltas, name),
+                     dev, types.get(name, i32),
+                     (n_cand, 4) if name == "load_delta" else (n_cand,),
+                     name)
+           for name in _K3_INPUTS[:-1]}
+    ins["leader_load"] = req(state.leader_load, dev, f32, (p, 4),
+                             "leader_load")
+    ints = torch.empty((1 + len(_K3_INT_FIELDS), k), dtype=i32, device=dev)
+    floats = torch.empty((6 + 8 + len(PRE_FIELDS)) * k, dtype=f32,
+                         device=dev)
+    flags = torch.empty((3, k), dtype=torch.bool, device=dev)
+    # Global scratch: each reduced row's packed key (u64), then its
+    # 64-byte record of the fields at its pick.
+    scratch = torch.empty(-(-8 * n // 16) * 16 + 64 * n, dtype=torch.uint8,
+                          device=dev)
+    params = SelectBatchParams(
+        *[ins[name].data_ptr() for name in _K3_INPUTS],
+        r0, c0, r1, c1, int(extra_last_col), k, p, state.num_brokers,
+        ints.data_ptr(), floats.data_ptr(), flags.data_ptr(),
+        scratch.data_ptr(), scratch.numel())
+    return params, (ints, floats, flags, scratch)
+
+
+def select_batch_outputs(buffers):
+    """(idx, part_ok, sub, has_earlier, pot, lbi), views of K3's output
+    blocks (``select_batch_params``)."""
+    ints, floats, flags, _scratch = buffers
+    k = ints.shape[1]
+    pre_load = floats[6 * k:14 * k].view(2, k, 4)
+    pre = floats[14 * k:].view(len(PRE_FIELDS), k)
+    sub = CandidateDeltas(
+        **{name: ints[1 + i] for i, name in enumerate(_K3_INT_FIELDS)},
+        load_delta=floats[:4 * k].view(k, 4), valid=flags[2],
+        pre_src_load=pre_load[0], pre_dst_load=pre_load[1],
+        **{name: pre[i] for i, name in enumerate(PRE_FIELDS)})
+    return (ints[0], flags[0], sub, flags[1], floats[4 * k:5 * k],
+            floats[5 * k:6 * k])
+
+
 def select_batch(state: ClusterTensors, deltas: CandidateDeltas,
                  score: torch.Tensor, layout, m: int,
                  extra_last_col: bool = False):
@@ -158,49 +249,17 @@ def select_batch(state: ClusterTensors, deltas: CandidateDeltas,
                                   extra_last_col)
     if dev.type != "cuda":
         raise ValueError(f"select_batch: unsupported device {dev}")
-    if len(layout) != 2:
-        raise ValueError("select_batch kernel: expects the move and the "
-                         "leadership block")
-    (r0, c0), (r1, c1) = layout
-    n = r0 + r1
-    k = min(m, n)
-    if n > SELECT_BATCH_MAX_ROWS or k > SELECT_BATCH_MAX_M or k < 1:
-        raise kernels.limit_error("select_batch",
-                                  f"{n} reduced rows, m={k}")
-    req = kernels.requirer("select_batch")
-    p = state.num_partitions
-    i32, f32 = torch.int32, torch.float32
-    n_cand = r0 * c0 + r1 * c1
-    args = (req(score, dev, f32, (n_cand,), "score"),
-            req(deltas.partition, dev, i32, (n_cand,), "partition"),
-            req(deltas.src_broker, dev, i32, (n_cand,), "src_broker"),
-            req(deltas.dst_broker, dev, i32, (n_cand,), "dst_broker"),
-            req(deltas.topic, dev, i32, (n_cand,), "topic"),
-            req(deltas.replica_delta, dev, i32, (n_cand,), "replica_delta"),
-            req(deltas.leader_delta, dev, i32, (n_cand,), "leader_delta"),
-            req(deltas.load_delta, dev, f32, (n_cand, 4), "load_delta"),
-            req(state.leader_load, dev, f32, (p, 4), "leader_load"))
-    idx = torch.empty(k, dtype=i32, device=dev)
-    part_ok = torch.empty(k, dtype=torch.bool, device=dev)
-    has_earlier = torch.empty(k, dtype=torch.bool, device=dev)
-    pre_load = torch.empty((2, k, 4), dtype=f32, device=dev)
-    pre_scalars = torch.empty((len(PRE_FIELDS), k), dtype=f32, device=dev)
+    params, buffers = select_batch_params(state, deltas, score, layout, m,
+                                          extra_last_col)
     lib = kernels.library("select_batch")
-    scratch_bytes = lib.cc_select_batch_scratch_bytes(n, k)
-    scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
-    code = lib.cc_select_batch(
-        *[a.data_ptr() for a in args], r0, c0, r1, c1, int(extra_last_col),
-        k, idx.data_ptr(), part_ok.data_ptr(), has_earlier.data_ptr(),
-        pre_load.data_ptr(), pre_scalars.data_ptr(), scratch.data_ptr(),
-        scratch_bytes, kernels.stream_ptr(dev))
-    kernels.check(code, "select_batch")
+    if lib.cc_select_batch_params_bytes() != ctypes.sizeof(params):
+        raise RuntimeError("select_batch: the parameter block's layout "
+                           "differs from csrc/select_batch.cu's")
+    kernels.check(lib.cc_select_batch(ctypes.byref(params),
+                                      kernels.stream_ptr(dev)),
+                  "select_batch")
     kernels.LAUNCHES["select_batch"] += 1
-    sub = deltas.take(idx)
-    pot, lbi = pot_lbi_deltas(state, sub)
-    sub = dataclasses.replace(
-        sub, pre_src_load=pre_load[0], pre_dst_load=pre_load[1],
-        **{name: pre_scalars[i] for i, name in enumerate(PRE_FIELDS)})
-    return idx, part_ok, sub, has_earlier, pot, lbi
+    return select_batch_outputs(buffers)
 
 
 def cumulative_select(state: ClusterTensors, deltas: CandidateDeltas,

@@ -114,9 +114,9 @@ _SIGNATURES = {
         "cc_select_leadership_scratch_bytes": ([_I], ctypes.c_longlong),
     },
     "select_batch": {
-        "cc_select_batch": [_VP] * 9 + [_I] * 6 + [_VP] * 6
-        + [ctypes.c_longlong, _VP],
-        "cc_select_batch_scratch_bytes": ([_I, _I], ctypes.c_longlong),
+        "cc_select_batch": [_VP, _VP],
+        "cc_select_batch_params_bytes": ([], ctypes.c_longlong),
+        "cc_select_batch_smem_bytes": [_I, _I],
     },
     "apply_deltas": {
         "cc_apply_deltas": [_VP] * 15 + [_I] * 3 + [_VP] * 6 + [_VP],
@@ -185,8 +185,8 @@ LIMITS = {
     "select_sources": "half <= 2048 global rows (k_src = 2048 at any B), "
                       "in leadership mode k_l <= 2048 rows, "
                       "B <= 16384 brokers and 0 < P*S < 2**31",
-    "select_batch": "<= 4096 reduced rows (move + leadership) and "
-                    "1 <= m <= 2048",
+    "select_batch": "<= 4096 reduced rows (move + leadership), "
+                    "1 <= m <= 2048 and B < 2**20 brokers",
     "apply_deltas": "m <= 2048 rows (2m events in one block's radix sort) "
                     "and B < 2**19 brokers",
     "intra_broker": "<= 8192 replicas on one broker (one CTA's shared "

@@ -9,9 +9,10 @@ and checked by
 port's card run against them without importing JAX. The module also
 holds what the card checks and the tests share: the kernels' adversarial
 inputs, the swap grid's inputs, the CUDA-graph capture that counts a
-call's launches, the JBOD disk fixtures of K5 (``jbod_disks``,
-``sentinel_case``, ``random_disk_case``), all built from numpy alone, and
-K7's goal of each weight family (``K7_FAMILY_GOALS``).
+call's launches, K3's edge cases (``k3_case``), the JBOD disk fixtures of
+K5 (``jbod_disks``, ``sentinel_case``, ``random_disk_case``), all built
+from numpy alone, and K7's goal of each weight family
+(``K7_FAMILY_GOALS``).
 
 :func:`outcome` summarises a solve in the file's form. It reads only the
 attributes both packages' ``OptimizerResult`` share and numpy copies of
@@ -237,6 +238,101 @@ def k4_drain_batch(state, m: int = 2048, seed: int = 0):
     pot, lbi = pot_lbi_deltas(state, sub)
     sel = torch.from_numpy(np.arange(m) % 8 != 7).to(state.device)
     return sub, sel, pot, lbi
+
+
+# K3's edge cases (``k3_case``): (move rows, move columns, leadership
+# rows, leadership columns, m, targeted column) and what the case stresses.
+K3_CASES = {
+    "mixed": (48, 9, 32, 3, 40, True),            # the _world-like mix
+    "equal_scores": (64, 6, 32, 3, 64, False),    # ties: lower row first
+    "partition_dups": (64, 6, 32, 3, 80, False),  # six partitions in all
+    "low_scores": (48, 5, 24, 3, 60, False),      # <= 1e-9 share partitions
+    "none_scoring": (32, 5, 16, 3, 40, False),    # nothing above 1e-9
+    "m_one": (32, 5, 16, 3, 1, True),
+    "m_all_rows": (30, 5, 18, 3, 60, False),      # k = nr = 48
+    "odd_sizes": (37, 7, 11, 3, 23, True),
+    "small_leadership": (96, 9, 2, 3, 64, True),
+    "top_brokers": (48, 6, 24, 3, 64, False),     # brokers B-3 .. B-1
+    "deep_scan": (300, 4, 300, 3, 520, False),    # three scan levels
+    "cap": (2048, 8, 2048, 3, 2048, False),       # 4,096 rows, m = 2,048
+}
+
+
+def k3_case(name: str, num_partitions: int, num_brokers: int,
+            num_topics: int, seed: int = 0) -> dict[str, Any]:
+    """One K3 input of ``K3_CASES`` drawn from ``seed`` with numpy:
+    the ``CandidateDeltas`` fields of a [r0 × c0] move block and a [r1 ×
+    c1] leadership block (``src_broker`` ... ``valid``), ``score``,
+    ``layout``, ``m`` and ``extra_last_col``. Loads mix signs, magnitudes
+    and signed zeros; invalid rows score -inf."""
+    r0, c0, r1, c1, m, extra = K3_CASES[name]
+    rng = np.random.default_rng([seed, sorted(K3_CASES).index(name)])
+    n0, n1 = r0 * c0, r1 * c1
+    n = n0 + n1
+    is_move = np.arange(n) < n0
+    part = rng.integers(0, num_partitions, n)
+    if name in ("partition_dups", "low_scores"):
+        part = rng.choice(rng.integers(0, num_partitions, 6 if name ==
+                                       "partition_dups" else 12), n)
+    lo_b = num_brokers - 3 if name == "top_brokers" else 0
+    src = rng.integers(lo_b, num_brokers, n)
+    dst = rng.integers(lo_b, num_brokers, n)
+    topic = part % max(1, num_topics // (4 if name == "top_brokers" else 1))
+    load = (rng.standard_normal((n, 4))
+            * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(np.float32)
+    load[rng.random((n, 4)) < 0.05] = 0.0
+    load[rng.random((n, 4)) < 0.05] = -0.0
+    valid = rng.random(n) < 0.9
+    if name == "equal_scores":
+        score = rng.choice(np.float32([0.5, 1.0, 2.0]), n)
+    elif name == "low_scores":
+        score = rng.choice(np.float32([0.0, -0.0, 1e-9, 5e-10, -1e-9, 2e-9,
+                                       1.0, 3.0]), n)
+    elif name == "none_scoring":
+        score = rng.choice(np.float32([0.0, -0.0, 1e-9, -1.0, -np.inf]), n)
+    else:
+        score = (rng.integers(0, 4, n) + rng.random(n) * 0.005
+                 ).astype(np.float32)
+        score[rng.random(n) < 0.1] *= -1
+    score = np.where(valid, score, -np.inf).astype(np.float32)
+    i32 = np.int32
+    return dict(
+        src_broker=src.astype(i32), dst_broker=dst.astype(i32),
+        load_delta=load, replica_delta=is_move.astype(i32),
+        leader_delta=np.where(is_move, rng.integers(0, 2, n), 1).astype(i32),
+        partition=part.astype(i32), topic=topic.astype(i32),
+        src_slot=rng.integers(0, 3, n).astype(i32),
+        dst_slot=np.where(is_move, 0, rng.integers(0, 3, n)).astype(i32),
+        valid=valid, score=score, layout=((r0, c0), (r1, c1)), m=m,
+        extra_last_col=extra)
+
+
+K3_OUTPUTS = ("idx", "part_ok", "sub", "has_earlier", "pot", "lbi")
+
+
+def k3_mismatches(got, want) -> list[str]:
+    """The outputs of two ``select_batch`` calls that differ: integer and
+    bool outputs exactly, f32 ones bit for bit (signed zeros too), every
+    ``CandidateDeltas`` field of ``sub`` (the gathered rows and the
+    pre-deltas) by name."""
+    import dataclasses
+
+    import torch
+
+    def same(a, b) -> bool:
+        if a is None or b is None:
+            return a is b
+        if a.dtype != b.dtype or a.shape != b.shape:
+            return False
+        if a.dtype == torch.float32:
+            a, b = (x.contiguous().view(torch.int32) for x in (a, b))
+        return torch.equal(a, b)
+
+    bad = [name for name, a, b in zip(K3_OUTPUTS, got, want)
+           if name != "sub" and not same(a, b)]
+    bad += [f.name for f in dataclasses.fields(want[2])
+            if not same(getattr(got[2], f.name), getattr(want[2], f.name))]
+    return bad
 
 
 # Inputs on which K2's order is hardest to keep: ties in the value bits

@@ -1,8 +1,8 @@
-"""Device time of K5's load mode, K6's grid mode and K7 on one GPU, for
-one or more checkouts of the port, in turns.
+"""Device time of K5's load mode, K6's grid mode, K7 and K3 on one GPU,
+for one or more checkouts of the port, in turns.
 
     python3 -m cruise_control_tpu_torch.testing.kernel_times ROOT \
-        [ROOT ...] [--turns N] [--k7-only]
+        [ROOT ...] [--turns N] [--k7-only | --k3-only]
 
 Each ROOT is a directory that holds a ``cruise_control_tpu_torch``
 package: this checkout, or an unpacked ``git archive`` of another commit.
@@ -31,8 +31,15 @@ untraced ones), the device time a call of the named kernels, per record:
   256 MB add, untimed, as a round's earlier kernels leave K7's inputs
   mostly out of the 50 MB L2).
 
-``--k7-only`` times K7 alone. Prints one JSON line a root and turn (the
-grid's rows, the ms of each kernel by name, their sum). The card's name
+``--k7-only`` times K7 alone. ``--k3-only`` times K3 (``select_batch``)
+alone, and nothing else: the wrapper's call on the inputs one eager round
+of ReplicaDistributionGoal (6 goals prior) gives it at the 1k/100k cap
+(2,048 sources, 250 destinations: 4,096 reduced rows, m = 2,048) and at
+the 7k/1M cap (2,048 sources, 512 destinations), warm and cold (``k3_``,
+``k3_cold_``); there every device op of the call counts, the wrapper's
+own PyTorch ops included, and the line gives their number a call
+(``ops``). Prints one JSON line a root and turn (the grid's rows, the ms
+of each kernel by name, their sum). The card's name
 and power limit come first. Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -67,7 +74,8 @@ NAMES = ("count_kernel", "scan_kernel", "scatter_kernel", "balance_kernel",
          "place_kernel", "fold_kernel", "Memset (", "Memcpy DtoD",
          "panel_kernel", "score_grid_kernel", "weights_kernel", "peak_kernel",
          "to_float_kernel")
-FAMILY_GOALS, K7_ONLY = json.loads(sys.argv[1]), sys.argv[2] == "1"
+FAMILY_GOALS, MODE = json.loads(sys.argv[1]), sys.argv[2]
+K7_ONLY = MODE == "k7"
 OFFLINE_WORK = ("RACK_DUPLICATE", "LOAD_TOTAL", "FIT_PRIORITY")
 REPS = 20
 
@@ -94,9 +102,79 @@ def device_ms(fn):
     return {"ms": sum(per.values()), "kernels": per}
 
 
+def device_ops(fn):
+    # Device time and ops a call of every device op fn launches but the
+    # cold flush's (the only float64 op).
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=1, warmup=2, active=REPS)) as prof:
+        for _ in range(3 + REPS):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    per, ops = {}, 0
+    for e in prof.key_averages():
+        if not e.count or not str(getattr(e, "device_type", "")).endswith(
+                "CUDA") or "double" in e.key:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        per[e.key[:80]] = us / REPS / 1e3
+        ops += e.count
+    return {"ms": sum(per.values()), "ops": ops / REPS, "kernels": per}
+
+
 dev = torch.device("cuda")
 refs = load_reference_outcomes()
 out = {}
+if MODE == "k3":
+    from cruise_control_tpu_torch.analyzer import agg as agg_k3
+    from cruise_control_tpu_torch.analyzer import chain as chain_k3
+    from cruise_control_tpu_torch.analyzer import search as search_k3
+    from cruise_control_tpu_torch.analyzer.search import ExclusionMasks
+    flush64 = torch.zeros(32 << 20, dtype=torch.float64, device=dev)
+    for name, entry, dests in (("1k_100k_cap", "1k_100k", 250),
+                               ("7k_1m_cap", "7k_1m", 512)):
+        state, meta = build_fixture(refs[entry], dev)
+        goals = k6_goals("default", state.num_brokers)
+        active = [g.name for g in goals].index("ReplicaDistributionGoal")
+        calls = []
+        orig = search_k3.select_batch
+
+        def rec(*a, **kw):
+            calls.append((a, kw))
+            return orig(*a, **kw)
+
+        search_k3.select_batch = rec
+        try:
+            chain_k3._chain_round_body(
+                state, agg_k3.compute_agg(state, meta.num_topics), active,
+                [j < active for j in range(len(goals))], goals,
+                BalancingConstraint(),
+                SearchConfig(num_sources=2048, num_dests=dests,
+                             moves_per_round=2048),
+                meta.num_topics, ExclusionMasks())
+        finally:
+            search_k3.select_batch = orig
+        a, kw = calls[0]
+        (r0, c0), (r1, c1) = a[3]
+
+        def k3():
+            return search_k3.select_batch(*a, **kw)
+
+        def k3_cold():
+            flush64.add_(1.0)
+            return k3()
+
+        for tag, fn in (("", k3), ("_cold", k3_cold)):
+            out[f"k3{tag}_{name}"] = dict(
+                rows=r0 * c0 + r1 * c1, layout=[[r0, c0], [r1, c1]],
+                m=min(a[4], r0 + r1), **device_ops(fn))
+        del calls, a, kw, state
+    print(json.dumps(out))
+    sys.exit(0)
 big, big_meta = random_cluster(7000, 700, 1_000_000, rf=3, num_racks=8,
                                seed=42, skew_to_first=2.0,
                                target_utilization=0.55,
@@ -171,11 +249,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--turns", type=int, default=2)
-    ap.add_argument("--k7-only", action="store_true")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--k7-only", action="store_true")
+    only.add_argument("--k3-only", action="store_true")
     args = ap.parse_args()
     from . import K7_FAMILY_GOALS, k7_family_goal_args
     families = {f: k7_family_goal_args(f, 7000) for f in K7_FAMILY_GOALS}
-    child_args = [json.dumps(families), "1" if args.k7_only else "0"]
+    child_args = [json.dumps(families),
+                  "k7" if args.k7_only else "k3" if args.k3_only else "all"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -28,8 +28,9 @@ from cruise_control_tpu_torch.config import DEFAULT_GOALS
 from cruise_control_tpu_torch.model import tensors as tt
 from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
 from cruise_control_tpu_torch.testing import (
-    K2_CASES, cuda_graph_capture, cuda_graph_nodes, k2_adversarial_inputs,
-    k2_round_inputs, k4_adversarial_batch, k4_drain_batch,
+    K2_CASES, K3_CASES, cuda_graph_capture, cuda_graph_nodes,
+    k2_adversarial_inputs, k2_round_inputs, k3_case, k3_mismatches,
+    k4_adversarial_batch, k4_drain_batch,
 )
 
 pytestmark = pytest.mark.cuda
@@ -99,6 +100,7 @@ def test_round_kernels_match_twins_on_a_recorded_round(card):
         torch.testing.assert_close(getattr(got[2], name),
                                    getattr(want[2], name), rtol=1e-5,
                                    atol=1e-6)
+    assert k3_mismatches(got, want) == []
     assert kernels.LAUNCHES["select_batch"] > 0
 
 
@@ -181,6 +183,31 @@ def test_select_batch_at_its_cap_matches_twin(card):
     for name in ("pre_src_load", "pre_dst_load") + tc.PRE_FIELDS:
         assert torch.equal(getattr(got[2], name), getattr(want[2], name)), \
             name
+    # Every field the kernel writes, the gathered rows and pot / lbi too,
+    # bit for bit.
+    assert k3_mismatches(got, want) == []
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_select_batch_edge_cases_match_twin(card, case):
+    """K3 against its twin on the edge cases the CPU tests hold the twin
+    to JAX on (``testing.K3_CASES``): equal scores, partitions repeated
+    among the top rows, rows at or below 1e-9 sharing partitions with
+    scoring rows, no scoring row, m = 1, m = nr, odd sizes, a small
+    leadership block, brokers at the top of the fixture's range, three
+    scan levels; exact, floats bit for bit."""
+    state, meta = _state(card)
+    c = k3_case(case, state.num_partitions, state.num_brokers,
+                meta.num_topics)
+    deltas = tc.CandidateDeltas(**{
+        f.name: torch.from_numpy(np.ascontiguousarray(c[f.name])).to(card)
+        for f in dataclasses.fields(tc.CandidateDeltas) if f.name in c})
+    args = (state, deltas, torch.from_numpy(c["score"]).to(card),
+            c["layout"], c["m"], c["extra_last_col"])
+    before = kernels.LAUNCHES["select_batch"]
+    got = tsearch.select_batch(*args)
+    assert kernels.LAUNCHES["select_batch"] == before + 1
+    assert k3_mismatches(got, tsearch.select_batch_plain(*args)) == []
 
 
 def test_segment_reduce_and_select_sources_at_7k_brokers_1m_partitions(card):
