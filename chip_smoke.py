@@ -13,7 +13,7 @@ and each solve prints its replays, host reads (one per dispatch, the
 freeze-flag polls, the goal statistics) and frozen rounds. Kernel
 launches are counted per replay of each graph.
 
-1. Print the card's name and power limit, build the eight CUDA kernel
+1. Print the card's name and power limit, build the nine CUDA kernel
    libraries (one nvcc per source, all started together) and print the
    build time and each kernel's registers, stack and spills from
    ``ptxas -v`` (and K3's shared memory a CTA at its cap).
@@ -88,7 +88,8 @@ launches are counted per replay of each graph.
    4th row unselected and naming broker B-1), K1 and K2 at 1k/100k
    (K1's offline mode and K2 also on phase 6's first recorded calls:
    4,971 offline replicas, each weighing 1e30 in K2's input), each
-   against its twin as in phase 2, and timed.
+   against its twin as in phase 2, and timed (K2's leadership mode and K8,
+   one cooperative launch each, fail above two device ops a timed call).
 9. K1 (full and offline), K2 and K4 at 7,000 brokers / 1M partitions /
    700 topics with the last 50 brokers DEAD: K1 and K4 bitwise against
    their twins on a CPU copy (K4 on 2,048 replicas of the DEAD brokers
@@ -145,7 +146,9 @@ launches are counted per replay of each graph.
     (its pinned fields, the violation fingerprint and both digests).
 13. Kafka-assigner mode at 1k/100k (KafkaAssignerEvenRackAwareGoal,
     KafkaAssignerDiskUsageDistributionGoal), pinned: warm-up, then
-    steady, held to ``1k_100k_kafka_assigner``.
+    steady, held to ``1k_100k_kafka_assigner``. On phases 12-14 K2's
+    leadership mode and K8 are also held to their twins on the warm-up's
+    first calls.
 14. The 18-goal chain at 100/10k (RackAwareDistributionGoal,
     BrokerSetAwareGoal on config/brokerSets.json,
     MinTopicLeadersPerBrokerGoal, then the default chain), pinned, fused:
@@ -355,7 +358,7 @@ class Recorder:
     KEYS = ("segment_reduce", "select_sources",
             "select_batch", "apply_deltas", "score_grid",
             "score_grid_recheck", "slot_weights",
-            "select_sources_leadership")
+            "select_leadership")
     K6_KEYS = ("score_grid", "score_grid_recheck")
     # K8 runs in swap rounds only.
     SWAP_KEY = "swap_top_replicas"
@@ -378,7 +381,7 @@ class Recorder:
         self._wrap(chain_mod, "score_grid", "score_grid")
         self._wrap(chain_mod, "recheck", "score_grid_recheck")
         self._wrap(chain_mod, "slot_weights", "slot_weights")
-        self._wrap(cand_mod, "leadership_sources", "select_sources_leadership")
+        self._wrap(cand_mod, "leadership_sources", "select_leadership")
         self._wrap(search_mod, "swap_top_replicas", "swap_top_replicas")
         for key in self.BODY_KEYS:
             self._wrap(chain_mod, key, key)
@@ -477,12 +480,14 @@ K6_KERNELS = {"score_grid": ["panel_kernel", "score_grid_kernel"],
               "score_grid_recheck": ["recheck_kernel"]}
 K6_OPS = {"score_grid": 2, "score_grid_recheck": 1}
 # K7's kernels and its memsets (the flag, the peak); K2's leadership mode
-# (its digit passes share the name of K2's); K8's kernel and the memset of
-# its lists.
+# and K8, one cooperative launch each (no memset).
 K7_KERNELS = ["peak_kernel", "weights_kernel", "Memset ("]
-K2L_KERNELS = ["digit_kernel", "lead_compact_kernel", "lead_rank_kernel",
-               "lead_pad_kernel", "Memset ("]
-K8_KERNELS = ["top_replicas_kernel", "Memset ("]
+K2L_KERNELS = ["leadership_kernel"]
+K8_KERNELS = ["top_replicas_kernel"]
+# The most device ops a call of each, its wrapper's own included (K8's
+# wrapper joins its two broker lists).
+K2L_MAX_OPS = 2
+K8_MAX_OPS = 2
 
 
 def check_k1(agg_mod, state, num_topics, label: str) -> float:
@@ -1050,11 +1055,12 @@ def check_k7_goals(slot_mod, rec: "Recorder", label: str, held: dict,
             f"{label} (override {'on' if override else 'off'})")
 
 
-def check_k2_leadership(cand_mod, args, label: str) -> dict:
+def check_k2_leadership(cand_mod, args, label: str, timed: bool = True):
     """K2's leadership mode exact against its twin (values bit for bit,
-    partitions, top_k's -inf padding); timed beside the twin, the bound
-    and ``torch.topk`` of the masked leader weights (not in the
-    reference's tie order)."""
+    partitions, top_k's -inf padding); timed: its device ops a call (at
+    most K2L_MAX_OPS) and its times beside the twin, the bound and
+    ``torch.topk`` of the masked leader weights (not in the reference's
+    tie order)."""
     import torch
 
     from cruise_control_tpu_torch.model.tensors import is_leader_slot
@@ -1077,7 +1083,15 @@ def check_k2_leadership(cand_mod, args, label: str) -> dict:
     print(f"K2 leadership mode at {label}: ok (exact, k={k}; {finite} finite "
           f"rows, {k - finite} padding rows; {ties} leader slots at the top "
           f"weight {top:g})")
+    if not timed:
+        return None
+    ops_a_call = device_ops(lambda: cand_mod.leadership_sources(*args))
+    print(f"  K2 leadership at {label}: {ops_a_call} device ops a call")
+    if ops_a_call > K2L_MAX_OPS:
+        fail(f"K2 leadership mode at {label}: {ops_a_call} device ops a call "
+             f"(at most {K2L_MAX_OPS})")
     line = dict(shape=f"{label}, k={k}", max_abs_err=0.0,
+                device_ops_per_call=ops_a_call,
                 library_call="torch.topk of the masked leader weights over "
                              "P*S (not in the reference's tie order)",
                 **measure(lambda: cand_mod.leadership_sources(*args),
@@ -1111,6 +1125,12 @@ def check_k8(search_mod, args, label: str, timed: bool = True):
           f"j={j}; {padded} padding rows)")
     if not timed:
         return None
+    ops_a_call = device_ops(lambda: search_mod.swap_top_replicas(*args))
+    print(f"  K8 at {label}: {ops_a_call} device ops a call (kernel and "
+          "wrapper)")
+    if ops_a_call > K8_MAX_OPS:
+        fail(f"K8 at {label}: {ops_a_call} device ops a call (at most "
+             f"{K8_MAX_OPS})")
     from cruise_control_tpu_torch.model.tensors import (
         broker_segments, replica_exists,
     )
@@ -1126,6 +1146,7 @@ def check_k8(search_mod, args, label: str, timed: bool = True):
         keys.append(torch.where(on_b, sign * flat_w[None, :], ninf))
     hits = int(torch.isfinite(keys[0]).sum() + torch.isfinite(keys[1]).sum())
     line = dict(shape=f"{label}, k={src_b.shape[0]}, j={j}", max_abs_err=0.0,
+                device_ops_per_call=ops_a_call,
                 library_call="torch.topk of the masked [k, P*S] keys, both "
                              "sides (not in the reference's tie order)",
                 **measure(lambda: search_mod.swap_top_replicas(*args),
@@ -1194,7 +1215,7 @@ def check_round_launches(launches: dict, loop: dict, label: str) -> None:
     """K7 once per move round and per swap round, K2's leadership mode
     once per move round (as K6's grid), K8 once per swap round, and K1's
     offline mode never (K7 counts the round's offline replicas)."""
-    lead = launches.get("select_sources_leadership", 0)
+    lead = launches.get("select_leadership", 0)
     swap = launches.get("swap_top_replicas", 0)
     if lead != launches.get("score_grid", 0):
         fail(f"{label}: K2's leadership mode ran {lead} times, K6's grid "
@@ -1494,8 +1515,8 @@ def main() -> int:
         lines_100["slot_weights"] = check_k7(
             slot_mod, rec.calls["slot_weights"][0][0], shapes_100,
             timed=True)
-        lines_100["select_sources_leadership"] = check_k2_leadership(
-            cand_mod, rec.calls["select_sources_leadership"][0][0],
+        lines_100["select_leadership"] = check_k2_leadership(
+            cand_mod, rec.calls["select_leadership"][0][0],
             shapes_100)
         if rec.calls["swap_top_replicas"]:
             lines_100["swap_top_replicas"] = check_k8(
@@ -1619,7 +1640,7 @@ def main() -> int:
             "score_grid_recheck": lambda *a, **kw:
                 a[7].valid.shape[0] == CAP_M,
             # leadership_sources(state, source_score, weight, num_sources)
-            "select_sources_leadership": lambda *a, **kw: a[3] == CAP_M,
+            "select_leadership": lambda *a, **kw: a[3] == CAP_M,
         }
         rec = Recorder(chain_mod, search_mod, wanted)
         warm_opt, _s, _m, warm_b, _g, warm_b_s, _r = bounded_solve(
@@ -1716,7 +1737,7 @@ def main() -> int:
         drain_offline_state = drain_k7[1]
         del drain_k7
         drain_k2_args, _ = rec_d.calls["select_sources"][0]
-        drain_lead_args, _ = rec_d.calls["select_sources_leadership"][0]
+        drain_lead_args, _ = rec_d.calls["select_leadership"][0]
         del rec_d
 
     # -- 7. default config (adaptive dispatch) ---------------------------------
@@ -1853,10 +1874,10 @@ def main() -> int:
             f"{shapes_1k} wide cap", timed=True)
         lines["slot_weights"] = check_k7(
             slot_mod, rec.calls["slot_weights"][0][0], shapes_1k, timed=True)
-        lines["select_sources_leadership"] = check_k2_leadership(
-            cand_mod, rec.picked["select_sources_leadership"][0],
+        lines["select_leadership"] = check_k2_leadership(
+            cand_mod, rec.picked["select_leadership"][0],
             f"{shapes_1k} cap")
-        lines["select_sources_leadership_drain"] = check_k2_leadership(
+        lines["select_leadership_drain"] = check_k2_leadership(
             cand_mod, drain_lead_args, f"{shapes_1k} drain-50 first call "
             "(offline leaders at 1e30)")
         k8_state = rec.calls["swap_top_replicas"][0][0][0]
@@ -1895,7 +1916,7 @@ def main() -> int:
             cand_mod, (big, score, weight, CAP_M),
             f"{shapes_7k}, 50 brokers DEAD, round inputs (offline replicas "
             "at 1e30)")
-        lines_7k["select_sources_leadership"] = check_k2_leadership(
+        lines_7k["select_leadership"] = check_k2_leadership(
             cand_mod, (big, score, weight, CAP_M),
             f"{shapes_7k}, 50 brokers DEAD, round inputs (offline leaders "
             "at 1e30)")
@@ -2195,6 +2216,14 @@ def main() -> int:
                 rec_x.restore()
             check_k6_goals(sg_mod, k6_mismatches, rec_x, label, k6_held)
             check_k7_goals(slot_mod, rec_x, label, k7_held, k7_families)
+            # K2's leadership mode and K8 on the path's first calls.
+            if rec_x.calls["select_leadership"]:
+                check_k2_leadership(cand_mod,
+                                    rec_x.calls["select_leadership"][0][0],
+                                    f"{label} first move round", timed=False)
+            if rec_x.calls["swap_top_replicas"]:
+                check_k8(search_mod, rec_x.calls["swap_top_replicas"][0][0],
+                         f"{label} first swap round", timed=False)
             del rec_x
             outcome_check(f"{label} warm-up", got_w, ref, digest_fields,
                           res_w)
@@ -2297,8 +2326,8 @@ def main() -> int:
                                "cruise_control_tpu/analyzer/chain.py:301"),
         "slot_weights": ("cruise_control_tpu_torch/csrc/slot_pass.cu",
                          "cruise_control_tpu/analyzer/chain.py:146"),
-        "select_sources_leadership": (
-            "cruise_control_tpu_torch/csrc/select_sources.cu",
+        "select_leadership": (
+            "cruise_control_tpu_torch/csrc/select_leadership.cu",
             "cruise_control_tpu/analyzer/candidates.py:315"),
         "swap_top_replicas": ("cruise_control_tpu_torch/csrc/swap_select.cu",
                               "cruise_control_tpu/analyzer/search.py:390"),
@@ -2316,8 +2345,8 @@ def main() -> int:
             [lines_100[name]] if name in lines_100 else []) + (
             [adv_line] if name == "apply_deltas" else []) + (
             k2_lines[2:] if name == "select_sources" else
-            [lines.pop("select_sources_leadership_drain"), lines_7k[name]]
-            if name == "select_sources_leadership" else
+            [lines.pop("select_leadership_drain"), lines_7k[name]]
+            if name == "select_leadership" else
             [lines_7k[name]] if name in lines_7k else [])
         if name == "slot_weights":
             line["families"] = [k7_families[f.name]

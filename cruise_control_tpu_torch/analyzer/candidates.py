@@ -235,6 +235,8 @@ def select_sources_plain(state: ClusterTensors, source_score: torch.Tensor,
 # Row indices are 32-bit: P*S < 2**31.
 SELECT_MAX_HALF = 2048
 SELECT_MAX_BROKERS = 16384
+# K2's leadership mode's limit (csrc/select_leadership.cu).
+LEAD_MAX_K = 2048
 
 
 def select_sources(state: ClusterTensors, source_score: torch.Tensor,
@@ -332,7 +334,8 @@ def leadership_sources(state: ClusterTensors, source_score: torch.Tensor,
                        replica_weight: torch.Tensor, num_sources: int,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The leadership block's partitions ``(top_lw [k_l], lp [k_l])``: K2's
-    leadership mode on the card, its twin on the CPU."""
+    leadership mode (``csrc/select_leadership.cu``, one cooperative launch)
+    on the card, its twin on the CPU."""
     dev = state.device
     if dev.type == "cpu":
         return leadership_sources_plain(state, source_score, replica_weight,
@@ -343,12 +346,10 @@ def leadership_sources(state: ClusterTensors, source_score: torch.Tensor,
     b = state.num_brokers
     n_flat = p * s
     k_l = min(num_sources, n_flat)
-    if k_l > SELECT_MAX_HALF or b > SELECT_MAX_BROKERS \
-            or not 0 < n_flat < 2 ** 31:
-        raise kernels.limit_error("select_sources",
-                                  f"leadership k_l={k_l}, B={b}, "
-                                  f"P*S={n_flat}")
-    req = kernels.requirer("select_sources")
+    if k_l > LEAD_MAX_K or not 0 < n_flat < 2 ** 31:
+        raise kernels.limit_error("select_leadership",
+                                  f"k_l={k_l}, P*S={n_flat}")
+    req = kernels.requirer("select_leadership")
     weight = req(replica_weight, dev, torch.float32, (p, s), "replica_weight")
     score = req(source_score, dev, torch.float32, (b,), "source_score")
     assignment = req(state.assignment, dev, torch.int32, (p, s), "assignment")
@@ -356,15 +357,18 @@ def leadership_sources(state: ClusterTensors, source_score: torch.Tensor,
     leader = req(state.leader_slot, dev, torch.int32, (p,), "leader_slot")
     top_lw = torch.empty(k_l, dtype=torch.float32, device=dev)
     lp = torch.empty(k_l, dtype=torch.int32, device=dev)
-    lib = kernels.library("select_sources")
-    scratch = torch.empty(lib.cc_select_leadership_scratch_bytes(k_l),
-                          dtype=torch.uint8, device=dev)
+    lib = kernels.library("select_leadership")
+    nbytes = lib.cc_select_leadership_scratch_bytes(p, k_l)
+    if nbytes <= 0:
+        raise RuntimeError("select_leadership: no scratch size for "
+                           f"P={p}, k_l={k_l}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     code = lib.cc_select_leadership(
         weight.data_ptr(), score.data_ptr(), assignment.data_ptr(),
         pmask.data_ptr(), leader.data_ptr(), p, s, b, k_l, top_lw.data_ptr(),
         lp.data_ptr(), scratch.data_ptr(), kernels.stream_ptr(dev))
-    kernels.check(code, "select_sources leadership mode")
-    kernels.LAUNCHES["select_sources_leadership"] += 1
+    kernels.check(code, "select_leadership")
+    kernels.LAUNCHES["select_leadership"] += 1
     return top_lw, lp
 
 

@@ -356,13 +356,19 @@ def swap_top_replicas(state: ClusterTensors, weight: torch.Tensor,
     req = kernels.requirer("swap_top_replicas")
     w = req(weight, dev, torch.float32, (p, s), "weight")
     assignment = req(state.assignment, dev, torch.int32, (p, s), "assignment")
+    if assignment.data_ptr() % 16:
+        raise kernels.limit_error("swap_top_replicas",
+                                  "assignment not 16-byte aligned")
     pmask = req(state.partition_mask, dev, torch.bool, (p,), "partition_mask")
     brokers = torch.cat([src_brokers, dst_brokers]).to(torch.int32)
     flat_idx = torch.empty((2, k, j), dtype=torch.int32, device=dev)
     valid = torch.empty((2, k, j), dtype=torch.bool, device=dev)
     lib = kernels.library("swap_select")
-    scratch = torch.empty(lib.cc_swap_top_replicas_scratch_bytes(),
-                          dtype=torch.uint8, device=dev)
+    nbytes = lib.cc_swap_top_replicas_scratch_bytes(p, s)
+    if nbytes <= 0:
+        raise RuntimeError(f"swap_top_replicas: no scratch size for P={p}, "
+                           f"S={s}")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     kernels.check(lib.cc_swap_top_replicas(
         w.data_ptr(), assignment.data_ptr(), pmask.data_ptr(),
         brokers.data_ptr(), p, s, k, j, flat_idx.data_ptr(),

@@ -60,23 +60,8 @@
 //     each tile writes the two rows of its brokers of rank < quarter.
 // Loads a thread needs are issued together (kItems rows a tile). Per
 // call: one memset of the counters and best slots and kPasses + 4
-// kernels, whatever the data.
-//
-// Leadership mode (cc_select_leadership) replaces (JAX)
-// cruise_control_tpu/analyzer/candidates.py:315-326: the leadership
-// block's stable top-k of the leader slots' weights on positive-score
-// brokers over all P·S slots (every other slot -inf), as (top_lw, lp).
-// Only a partition's leader slot can key above -inf, so the same digit
-// passes run over one key a partition (that slot's packed key, -inf
-// with its index when it is off source), then the finite keys at or
-// above the boundary are compacted and ranked as in steps 3-4. When
-// fewer than k keys are finite, top_k pads with the lowest flat indices
-// whose key is -inf, non-leader slots included: those lie in [0, k), and
-// one CTA writes them in order. A leader weight below -inf in the total
-// order (a NaN with its sign bit set) is taken as -inf. Per call: one
-// memset and kPasses + 3 kernels. Bound: bytes — the leader slot, the
-// partition mask and each leader slot's weight, assignment and score
-// read once: ~0.004 ms at 1M partitions.
+// kernels, whatever the data. K2's leadership mode is a kernel of its own
+// (select_leadership.cu).
 #include <algorithm>
 
 #include <cub/block/block_scan.cuh>
@@ -179,76 +164,6 @@ __device__ __forceinline__ void tile_keys(const Rows& rows, int base,
 #pragma unroll
   for (int r = 0; r < kItems; ++r)
     key[r] = row_key(w[r], broker[r], base + r * kThreads + threadIdx.x);
-}
-
-// Leadership mode's rows: one a partition, keyed by its leader slot (the
-// only slot whose key can be finite): the slot's weight where the
-// replica exists on a positive-score broker, else -inf, with the slot's
-// flat index. The partition's other slots key -inf; they enter only as
-// padding (lead_pad_kernel).
-struct LeadRows {
-  const float* weight;
-  const float* score;
-  const int* assignment;
-  const uint8_t* partition_mask;
-  const int* leader_slot;
-  int n, S, B;   // n = P
-};
-
-// The flat index of partition p's leader slot (slot 0 without one) and
-// whether its key can be finite.
-__device__ __forceinline__ int lead_flat(const LeadRows& rows, int ls, int p,
-                                         bool& has) {
-  has = ls >= 0 && ls < rows.S;
-  return p * rows.S + (has ? ls : 0);
-}
-
-__device__ __forceinline__ bool lead_on(const LeadRows& rows, int a, int p) {
-  return a >= 0 && a < rows.B && rows.partition_mask[p] &&
-         rows.score[a] > 0.0f;
-}
-
-// Partition p's key (p < rows.n).
-__device__ __forceinline__ unsigned long long lead_key(const LeadRows& rows,
-                                                       int p) {
-  bool has;
-  const int flat = lead_flat(rows, rows.leader_slot[p], p, has);
-  const bool on = has && lead_on(rows, rows.assignment[flat], p);
-  return cc::pack_key(on ? rows.weight[flat] : cc::neg_inf(),
-                      static_cast<uint32_t>(flat));
-}
-
-// Keys strictly above -inf in the total order: the finite leader slots.
-__device__ __forceinline__ bool above_neg_inf(unsigned long long key) {
-  return static_cast<uint32_t>(key >> 32) > cc::ordered_bits(cc::neg_inf());
-}
-
-template <bool kSkip>
-__device__ __forceinline__ void tile_keys(const LeadRows& rows, int base,
-                                          uint32_t mask, uint32_t want,
-                                          unsigned long long (&key)[kItems]) {
-  int flat[kItems];
-  bool has[kItems];
-  float w[kItems];
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const int p = base + r * kThreads + threadIdx.x;
-    flat[r] = lead_flat(rows, p < rows.n ? rows.leader_slot[p] : -1, p,
-                        has[r]);
-    has[r] = has[r] && p < rows.n;
-  }
-#pragma unroll
-  for (int r = 0; r < kItems; ++r)
-    w[r] = has[r] ? rows.weight[flat[r]] : 0.0f;
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const int p = base + r * kThreads + threadIdx.x;
-    const bool need =
-        has[r] && (!kSkip || (cc::ordered_bits(w[r]) & mask) == want);
-    const bool on = need && lead_on(rows, rows.assignment[flat[r]], p);
-    key[r] = cc::pack_key(on ? w[r] : cc::neg_inf(),
-                          static_cast<uint32_t>(flat[r]));
-  }
 }
 
 // The per-broker best key: -0.0 folded into +0.0, so equal weights tie
@@ -609,100 +524,7 @@ broker_kernel(Rows rows, int half, int quarter, SelectState* st,
        ok && second != 0ull, rows.n, rows.S, cand_p, cand_s, src_valid);
 }
 
-// Leadership mode, after the digit passes: the finite keys at or above
-// the bucket's low edge go to the buffer.
-__global__ void __launch_bounds__(kThreads)
-lead_compact_kernel(LeadRows rows, int cap, SelectState* st,
-                    unsigned long long* __restrict__ buf) {
-  const unsigned long long low = __ldcg(&st->prefix);
-  const int lane = threadIdx.x & 31;
-  const int tile = kThreads * kItems;
-  for (int base = blockIdx.x * tile; base < rows.n;
-       base += gridDim.x * tile) {
-    unsigned long long keys[kItems];
-    tile_keys<false>(rows, base, 0u, 0u, keys);
-#pragma unroll
-    for (int r = 0; r < kItems; ++r) {
-      const int p = base + r * kThreads + threadIdx.x;
-      const bool take = p < rows.n && keys[r] >= low &&
-                        above_neg_inf(keys[r]);
-      const unsigned int mask = __ballot_sync(0xffffffffu, take);
-      if (mask) {
-        const int leader = __ffs(mask) - 1;
-        unsigned int pos = 0;
-        if (lane == leader)
-          pos = atomicAdd(&st->count,
-                          static_cast<unsigned int>(__popc(mask)));
-        pos = __shfl_sync(0xffffffffu, pos, leader) +
-              __popc(mask & ((1u << lane) - 1u));
-        if (take && pos < static_cast<unsigned int>(cap)) buf[pos] = keys[r];
-      }
-    }
-  }
-}
-
-// Output row r < k from the buffered key of rank r.
-__global__ void __launch_bounds__(kRankKeys)
-lead_rank_kernel(int S, int k, int cap, SelectState* st,
-                 const unsigned long long* __restrict__ buf,
-                 unsigned int* __restrict__ rank, float* __restrict__ top_lw,
-                 int* __restrict__ lp) {
-  const int m = min(static_cast<int>(__ldcg(&st->count)), cap);
-  if (!rank_tiles(BufKey{buf}, m, rank, st->rank_tickets)) return;
-  const int j = blockIdx.x * kRankKeys + threadIdx.x;
-  if (j >= m) return;
-  const unsigned int r = __ldcg(&rank[j]);
-  if (r >= static_cast<unsigned int>(k)) return;
-  const unsigned long long key = buf[j];
-  top_lw[r] = cc::key_value(key);
-  lp[r] = static_cast<int>(cc::key_index(key) / static_cast<uint32_t>(S));
-}
-
-// With fewer than k finite keys (all of them buffered), rows m..k-1 are
-// top_k's padding: the lowest flat indices whose key is -inf, which lie
-// in [0, k) (at most m of those are finite). One CTA scans them in order.
-__global__ void __launch_bounds__(kThreads)
-lead_pad_kernel(LeadRows rows, int k, int cap, const SelectState* st,
-                float* __restrict__ top_lw, int* __restrict__ lp) {
-  using Scan = cub::BlockScan<unsigned int, kThreads>;
-  __shared__ typename Scan::TempStorage scan_tmp;
-  const int m = min(static_cast<int>(__ldcg(&st->count)), cap);
-  if (m >= k) return;
-  int next = m;
-  for (int c0 = 0; c0 < k && next < k; c0 += kThreads) {
-    const int i = c0 + threadIdx.x;
-    bool pad = false;
-    if (i < k) {
-      const int p = i / rows.S;
-      const unsigned long long key = lead_key(rows, p);
-      pad = !(cc::key_index(key) == static_cast<uint32_t>(i) &&
-              above_neg_inf(key));
-    }
-    unsigned int before, total;
-    Scan(scan_tmp).ExclusiveSum(pad ? 1u : 0u, before, total);
-    const int r = next + static_cast<int>(before);
-    if (pad && r < k) {
-      top_lw[r] = cc::neg_inf();
-      lp[r] = i / rows.S;
-    }
-    next += static_cast<int>(total);
-    __syncthreads();
-  }
-}
-
 size_t align256(size_t x) { return (x + 255) & ~static_cast<size_t>(255); }
-
-// Leadership mode's scratch; everything before `buf` is zeroed each call.
-struct LeadLayout {
-  size_t hist, rank, buf, total;
-  explicit LeadLayout(int k) {
-    const size_t cap = static_cast<size_t>(k) + kBucketCap;
-    hist = align256(sizeof(SelectState));
-    rank = align256(hist + sizeof(unsigned int) * kPasses * kCopies * kBins);
-    buf = align256(rank + sizeof(unsigned int) * cap);
-    total = align256(buf + sizeof(unsigned long long) * cap);
-  }
-};
 
 // Scratch layout; everything before `buf` is zeroed each call.
 struct Layout {
@@ -720,50 +542,6 @@ struct Layout {
 };
 
 }  // namespace
-
-extern "C" long long cc_select_leadership_scratch_bytes(int k) {
-  return static_cast<long long>(LeadLayout(k).total);
-}
-
-// Leadership mode: the stable top-k of the leader slots' weights on
-// positive-score brokers over the P*S slots, as (top_lw [k], lp [k]):
-// the digit passes over one key a partition, the finite keys at or
-// above the boundary compacted and ranked, then top_k's -inf padding.
-extern "C" int cc_select_leadership(
-    const float* weight, const float* score, const int* assignment,
-    const uint8_t* partition_mask, const int* leader_slot, int P, int S,
-    int B, int k, float* top_lw, int* lp, void* scratch, void* stream_) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  const long long n_flat = static_cast<long long>(P) * S;
-  if (k < 1 || k > kMaxHalf || k > n_flat || B < 1 || B > kMaxBrokers ||
-      P < 1 || S < 1 || n_flat >= (1LL << 31))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const LeadLayout lay(k);
-  char* base = static_cast<char*>(scratch);
-  SelectState* st = reinterpret_cast<SelectState*>(base);
-  auto* hist = reinterpret_cast<unsigned int*>(base + lay.hist);
-  auto* rank = reinterpret_cast<unsigned int*>(base + lay.rank);
-  auto* buf = reinterpret_cast<unsigned long long*>(base + lay.buf);
-  const int cap = k + kBucketCap;
-  cudaError_t err = cudaMemsetAsync(base, 0, lay.buf, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const LeadRows rows{weight, score, assignment, partition_mask, leader_slot,
-                      P, S, B};
-  const int tiles = (P + kThreads * kItems - 1) / (kThreads * kItems);
-  const int grid = std::min(tiles, kMaxGrid);
-  // The passes find the min(k, P)-th largest of the P partition keys.
-  const int select = std::min(k, P);
-  for (int pass = 0; pass < kPasses; ++pass)
-    digit_kernel<<<grid, kThreads, 0, stream>>>(rows, select, pass, st,
-                                                hist);
-  lead_compact_kernel<<<grid, kThreads, 0, stream>>>(rows, cap, st, buf);
-  const dim3 rank_grid((cap + kRankKeys - 1) / kRankKeys,
-                       (cap + kRankChunk - 1) / kRankChunk);
-  lead_rank_kernel<<<rank_grid, kRankKeys, 0, stream>>>(S, k, cap, st, buf,
-                                                        rank, top_lw, lp);
-  lead_pad_kernel<<<1, kThreads, 0, stream>>>(rows, k, cap, st, top_lw, lp);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" long long cc_select_sources_scratch_bytes(int B, int half) {
   return static_cast<long long>(Layout(B, half).total);

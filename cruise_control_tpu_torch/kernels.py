@@ -15,7 +15,8 @@ path went through the kernels. K1's two modes count apart:
 loads, its own entry ``cc_intra_broker_load``); so do K6's:
 ``score_grid`` (the candidate grid: a panel launch and a row launch) and
 ``score_grid_recheck`` (the joint recheck of a selected batch); and K2's
-leadership mode counts as ``select_sources_leadership``. K7 counts as
+leadership mode, a source of its own (``select_leadership.cu``), counts
+as ``select_leadership``. K7 counts as
 ``slot_weights`` (its call also counts the round's offline replicas
 per broker, so the move round no longer runs K1's offline mode) and K8 as
 ``swap_top_replicas``. A wrapper
@@ -39,9 +40,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "_build"
-SOURCES = ("segment_reduce", "select_sources", "select_batch",
-           "apply_deltas", "intra_broker", "score_grid", "slot_pass",
-           "swap_select")
+SOURCES = ("segment_reduce", "select_sources", "select_leadership",
+           "select_batch", "apply_deltas", "intra_broker", "score_grid",
+           "slot_pass", "swap_select")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -110,8 +111,10 @@ _SIGNATURES = {
     "select_sources": {
         "cc_select_sources": [_VP] * 4 + [_I] * 5 + [_VP] * 5,
         "cc_select_sources_scratch_bytes": ([_I, _I], ctypes.c_longlong),
+    },
+    "select_leadership": {
         "cc_select_leadership": [_VP] * 5 + [_I] * 4 + [_VP] * 4,
-        "cc_select_leadership_scratch_bytes": ([_I], ctypes.c_longlong),
+        "cc_select_leadership_scratch_bytes": ([_I, _I], ctypes.c_longlong),
     },
     "select_batch": {
         "cc_select_batch": [_VP, _VP],
@@ -145,7 +148,7 @@ _SIGNATURES = {
     },
     "swap_select": {
         "cc_swap_top_replicas": [_VP] * 4 + [_I] * 4 + [_VP] * 4,
-        "cc_swap_top_replicas_scratch_bytes": ([], ctypes.c_longlong),
+        "cc_swap_top_replicas_scratch_bytes": ([_I, _I], ctypes.c_longlong),
     },
 }
 
@@ -183,8 +186,10 @@ LIMITS = {
     "segment_reduce": "P*S < 2**31 slots and, in full mode, B <= 16384 "
                       "brokers (two [B] histograms in shared memory)",
     "select_sources": "half <= 2048 global rows (k_src = 2048 at any B), "
-                      "in leadership mode k_l <= 2048 rows, "
                       "B <= 16384 brokers and 0 < P*S < 2**31",
+    "select_leadership": "k_l <= 2048 rows (one CTA's shared memory "
+                         "ranks them) and 0 < P*S < 2**31; any broker "
+                         "count",
     "select_batch": "<= 4096 reduced rows (move + leadership), "
                     "1 <= m <= 2048 and B < 2**20 brokers",
     "apply_deltas": "m <= 2048 rows (2m events in one block's radix sort) "
@@ -202,7 +207,8 @@ LIMITS = {
                     "partition's slots in registers and compares them "
                     "pairwise) and 0 < P*S < 2**31; any broker count",
     "swap_top_replicas": "k <= 8 brokers a side, j <= 4 replicas a "
-                         "broker and j <= P*S < 2**31",
+                         "broker, j <= P*S < 2**31 and the assignment "
+                         "16-byte aligned (16-byte loads)",
 }
 
 

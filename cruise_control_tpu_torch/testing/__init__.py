@@ -767,6 +767,32 @@ def k6_round_inputs(state, goals, active: int, num_topics: int, cfg,
     return rec
 
 
+def k8_round_inputs(state, goals, active: int, num_topics: int) -> tuple:
+    """The arguments of K8's wrapper (``search.swap_top_replicas``) in one
+    eager swap round of ``goals[active]`` with every earlier goal prior."""
+    from ..analyzer import agg as agg_mod
+    from ..analyzer import chain as chain_mod
+    from ..analyzer import search as search_mod
+    from ..analyzer.constraint import BalancingConstraint
+    from ..analyzer.search import ExclusionMasks
+    rec = []
+    orig = search_mod.swap_top_replicas
+
+    def record(*args):
+        rec.append(args)
+        return orig(*args)
+
+    search_mod.swap_top_replicas = record
+    try:
+        chain_mod._chain_swap_body(
+            state, agg_mod.compute_agg(state, num_topics), active,
+            [j < active for j in range(len(goals))], goals,
+            BalancingConstraint(), num_topics, ExclusionMasks())
+    finally:
+        search_mod.swap_top_replicas = orig
+    return rec[0]
+
+
 def k6_random_case(seed: int, device) -> tuple:
     """(state, num_topics, goals, masks, cfg) of a small seeded case: 8-16
     brokers, 64-256 partitions, RF 2-3, 3-7 racks, the chain

@@ -1,8 +1,9 @@
-"""Device time of K5's load mode, K6's grid mode, K7 and K3 on one GPU,
-for one or more checkouts of the port, in turns.
+"""Device time of K5's load mode, K6's grid mode, K7, K3, K2's leadership
+mode and K8 on one GPU, for one or more checkouts of the port, in turns.
 
     python3 -m cruise_control_tpu_torch.testing.kernel_times ROOT \
-        [ROOT ...] [--turns N] [--k7-only | --k3-only]
+        [ROOT ...] [--turns N] [--k7-only | --k3-only | --k2l-only |
+        --k8-only]
 
 Each ROOT is a directory that holds a ``cruise_control_tpu_torch``
 package: this checkout, or an unpacked ``git archive`` of another commit.
@@ -38,8 +39,20 @@ of ReplicaDistributionGoal (6 goals prior) gives it at the 1k/100k cap
 the 7k/1M cap (2,048 sources, 512 destinations), warm and cold (``k3_``,
 ``k3_cold_``); there every device op of the call counts, the wrapper's
 own PyTorch ops included, and the line gives their number a call
-(``ops``). Prints one JSON line a root and turn (the grid's rows, the ms
-of each kernel by name, their sum). The card's name
+(``ops``). ``--k2l-only`` times K2's leadership mode
+(``candidates.leadership_sources``) alone, the same way (every device op
+of the call, warm and cold: ``k2l_``, ``k2l_cold_``), on
+DiskUsageDistributionGoal's round scores and weights with the offline
+override (``testing.k2_round_inputs``) at k = 2,048: on the 1k/100k
+fixture (the cap) and at 7k/1M with the last 50 brokers DEAD (offline
+leaders at 1e30). ``--k8-only`` times K8 (``search.swap_top_replicas``)
+alone, the same way (``k8_``, ``k8_cold_``), on the inputs one eager
+swap round gives it: DiskUsageDistributionGoal's (the default chain's
+first goal with swap rounds, every earlier goal prior) at 1k/100k and at
+7k/1M, and KafkaAssignerDiskUsageDistributionGoal's (the kafka-assigner
+chain's swap goal, its rack goal prior) at 1k/100k. Prints one JSON line
+a root and turn (the grid's rows, the ms of each kernel by name, their
+sum). The card's name
 and power limit come first. Needs a CUDA device; imports nothing of JAX.
 """
 
@@ -175,6 +188,67 @@ if MODE == "k3":
         del calls, a, kw, state
     print(json.dumps(out))
     sys.exit(0)
+if MODE in ("k2l", "k8"):
+    from cruise_control_tpu_torch.analyzer import agg as agg_s
+    from cruise_control_tpu_torch.analyzer import candidates as cand_s
+    from cruise_control_tpu_torch.analyzer import chain as chain_s
+    from cruise_control_tpu_torch.analyzer import search as search_s
+    from cruise_control_tpu_torch.analyzer.search import ExclusionMasks
+    from cruise_control_tpu_torch.testing import k2_round_inputs
+    flush64 = torch.zeros(32 << 20, dtype=torch.float64, device=dev)
+
+    def swap_args(state, num_topics, chain, goal):
+        # K8's arguments in one eager swap round of ``goal``
+        # (testing.k8_round_inputs, written out: an older checkout timed
+        # here may lack it).
+        goals = k6_goals(chain, state.num_brokers)
+        active = [g.name for g in goals].index(goal)
+        rec = []
+        orig = search_s.swap_top_replicas
+
+        def record(*a):
+            rec.append(a)
+            return orig(*a)
+
+        search_s.swap_top_replicas = record
+        try:
+            chain_s._chain_swap_body(
+                state, agg_s.compute_agg(state, num_topics), active,
+                [j < active for j in range(len(goals))], goals,
+                BalancingConstraint(), num_topics, ExclusionMasks())
+        finally:
+            search_s.swap_top_replicas = orig
+        return rec[0]
+
+    cases = []
+    for entry in ("1k_100k", "7k_1m"):
+        state, meta = build_fixture(refs[entry], dev)
+        if MODE == "k2l":
+            if entry == "7k_1m":
+                state = set_broker_state(state, torch.arange(6950, 7000), 1)
+            score, weight = k2_round_inputs(state, meta.num_topics)
+            name = "1k_100k_cap" if entry == "1k_100k" else "7k_1m_dead50"
+            cases.append((name, lambda s=state, c=score, w=weight:
+                          cand_s.leadership_sources(s, c, w, 2048),
+                          dict(k=2048)))
+            continue
+        for chain, goal in (("default", "DiskUsageDistributionGoal"),
+                            ("kafka", "KafkaAssignerDiskUsageDistributionGoal")):
+            if chain == "kafka" and entry != "1k_100k":
+                continue
+            a = swap_args(state, meta.num_topics, chain, goal)
+            name = f"{entry}_{'kafka_assigner' if chain == 'kafka' else 'first_swap'}"
+            cases.append((name, lambda a=a: search_s.swap_top_replicas(*a),
+                          dict(k=int(a[2].shape[0]), j=int(a[4]))))
+    for name, fn, info in cases:
+        def cold(fn=fn):
+            flush64.add_(1.0)
+            return fn()
+
+        for tag, f in (("", fn), ("_cold", cold)):
+            out[f"{MODE}{tag}_{name}"] = dict(**info, **device_ops(f))
+    print(json.dumps(out))
+    sys.exit(0)
 big, big_meta = random_cluster(7000, 700, 1_000_000, rf=3, num_racks=8,
                                seed=42, skew_to_first=2.0,
                                target_utilization=0.55,
@@ -252,11 +326,15 @@ def main() -> int:
     only = ap.add_mutually_exclusive_group()
     only.add_argument("--k7-only", action="store_true")
     only.add_argument("--k3-only", action="store_true")
+    only.add_argument("--k2l-only", action="store_true")
+    only.add_argument("--k8-only", action="store_true")
     args = ap.parse_args()
     from . import K7_FAMILY_GOALS, k7_family_goal_args
     families = {f: k7_family_goal_args(f, 7000) for f in K7_FAMILY_GOALS}
     child_args = [json.dumps(families),
-                  "k7" if args.k7_only else "k3" if args.k3_only else "all"]
+                  "k7" if args.k7_only else "k3" if args.k3_only
+                  else "k2l" if args.k2l_only else "k8" if args.k8_only
+                  else "all"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -7,8 +7,9 @@ Each NAME is an entry of ``testing/reference_outcomes.json`` (default:
 its config and chain three times: a warm-up solve (the graph capture),
 which also records the inputs of the eager round run before each
 capture; a steady solve, timed; and a solve under ``torch.profiler``,
-which gives the device-busy share of its wall and the device ops that
-take the most time (the kernels of the replayed CUDA graphs among them).
+which gives the device-busy share of its wall, the device ops that take
+the most time (the kernels of the replayed CUDA graphs among them) and
+the calls and device time of each of the port's own kernels.
 
 Then the round body's device time is split three ways: each goal's first
 recorded round runs eagerly under the profiler with Python stacks, and
@@ -79,8 +80,7 @@ _FRAME = re.compile(r"^(.*)\((\d+)\): (\S+)$")
 _OWN_KERNEL = re.compile(r"^(void )?\(anonymous namespace\)::(\w+)(<[^>]*>)?")
 _KERNEL_PARTS = {"weights_kernel": "a", "peak_kernel": "a",
                  "offline_count_kernel": "a", "to_float_kernel": "a",
-                 "lead_compact_kernel": "a", "lead_rank_kernel": "a",
-                 "lead_pad_kernel": "a", "panel_kernel": "b",
+                 "leadership_kernel": "a", "panel_kernel": "b",
                  "score_grid_kernel": "b", "recheck_kernel": "b"}
 
 
@@ -94,8 +94,6 @@ def own_kernel_part(name: str) -> str | None:
     m = _OWN_KERNEL.match(name)
     if not m:
         return None
-    if m.group(2) == "digit_kernel" and "LeadRows" in (m.group(3) or ""):
-        return "a"
     return _KERNEL_PARTS.get(m.group(2), "c")
 
 
@@ -267,6 +265,7 @@ def profile_entry(name: str, whole: bool = True) -> dict:
     del final
     prof_s = busy = float("nan")
     top_ops = []
+    own_kernels = {}   # the port's kernels by name: (calls, device ms)
     if whole:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -279,6 +278,12 @@ def profile_entry(name: str, whole: bool = True) -> dict:
                      reverse=True)[:12]
         top_ops = [(e.key[:100], e.count, _dev_us(e, True) / 1e3)
                    for e in top]
+        for e in avgs:
+            m = _OWN_KERNEL.match(e.key)
+            if m:
+                calls, ms = own_kernels.get(m.group(2), (0, 0.0))
+                own_kernels[m.group(2)] = (calls + e.count,
+                                           ms + _dev_us(e, True) / 1e3)
         del prof, avgs
 
     rounds = [g.rounds for g in result.goal_results]
@@ -302,7 +307,7 @@ def profile_entry(name: str, whole: bool = True) -> dict:
         profiled_s=prof_s, rounds=sum(rounds), assignment_equal=equal,
         loop=loop, launches=launches,
         device_busy_s=busy, device_busy_share=busy / prof_s,
-        top_ops=top_ops,
+        top_ops=top_ops, own_kernels=own_kernels,
         split_ms={p: split[p] for p in "abc"},
         split_share={p: split[p] / total for p in "abc"},
         split_top_ops={p: top_parts[p].most_common(6) for p in "abc"},

@@ -752,7 +752,7 @@ def test_leadership_sources_matches_twin(k2_states, shape, kind):
         want = tc.leadership_sources_plain(state, score, weight, k)
         _bitwise(got[0], want[0], f"{shape} {kind} k={k} top_lw")
         _bitwise(got[1], want[1], f"{shape} {kind} k={k} lp")
-    assert kernels.LAUNCHES["select_sources_leadership"] == 2
+    assert kernels.LAUNCHES["select_leadership"] == 2
 
 
 @pytest.mark.parametrize("kind", ["round", "ties", "signed_zeros",
@@ -791,6 +791,71 @@ def test_swap_top_replicas_matches_twin(k2_states, shape, kind):
     assert kernels.LAUNCHES["swap_top_replicas"] == 2
 
 
+@pytest.mark.parametrize("shape", ["1k_100k", "7k_1m_dead50"])
+@pytest.mark.parametrize("case", K2_CASES)
+def test_leadership_sources_on_adversarial_inputs(k2_states, shape, case):
+    """K2's leadership mode exact against its twin on K2's adversarial
+    inputs: 1e30 ties past the block, signed zeros, all equal, few
+    sources (padding), a top broker with one finite replica."""
+    state, _meta = k2_states[shape]
+    weight, score = k2_adversarial_inputs(state.assignment.cpu().numpy(),
+                                          state.num_brokers, 2048, case,
+                                          seed=11)
+    dev = state.device
+    score, weight = torch.from_numpy(score).to(dev), \
+        torch.from_numpy(weight).to(dev)
+    for k in (64, 2048):
+        got = tc.leadership_sources(state, score, weight, k)
+        want = tc.leadership_sources_plain(state, score, weight, k)
+        _bitwise(got[0], want[0], f"{shape} {case} k={k} top_lw")
+        _bitwise(got[1], want[1], f"{shape} {case} k={k} lp")
+
+
+def test_leadership_and_swap_kernels_replay_in_a_graph(k2_states):
+    """K2's leadership mode and K8 each captured in a CUDA graph as one
+    node (a cooperative launch, no memset; K8's wrapper adds the join of
+    its two broker lists); replayed after their inputs change in place,
+    each equals its twin on the new inputs."""
+    for shape, (state, meta) in k2_states.items():
+        score, weight = k2_round_inputs(state, meta.num_topics)
+        b = state.num_brokers
+        gen = torch.Generator(device="cpu").manual_seed(4)
+        src_b = torch.randperm(b, generator=gen)[:8].to(torch.int32).to(
+            state.device)
+        dst_b = torch.randperm(b, generator=gen)[:8].to(torch.int32).to(
+            state.device)
+        graph_l, out_l = cuda_graph_capture(
+            lambda: tc.leadership_sources(state, score, weight, 2048))
+        graph_s, out_s = cuda_graph_capture(
+            lambda: tsearch.swap_top_replicas(state, weight, src_b, dst_b,
+                                              4))
+        join, _ = cuda_graph_capture(
+            lambda: torch.cat([src_b, dst_b]).to(torch.int32))
+        assert cuda_graph_nodes(graph_l) == 1, shape
+        assert cuda_graph_nodes(graph_s) == cuda_graph_nodes(join) + 1, shape
+        for turn in range(2):
+            if turn:
+                # New inputs in the captured tensors: ties at 1e30 on
+                # every tenth slot, other scores and brokers.
+                weight[::10] = 1e30
+                score.neg_()
+                src_b.copy_(torch.roll(src_b, 1))
+                dst_b.copy_(src_b.flip(0))
+            graph_l.replay()
+            graph_s.replay()
+            torch.cuda.synchronize()
+            want = tc.leadership_sources_plain(state, score, weight, 2048)
+            _bitwise(out_l[0], want[0], f"{shape} turn {turn} top_lw")
+            _bitwise(out_l[1], want[1], f"{shape} turn {turn} lp")
+            want = (*tsearch._per_broker_top_replicas(state, weight, src_b, 4,
+                                                      largest=True),
+                    *tsearch._per_broker_top_replicas(state, weight, dst_b, 4,
+                                                      largest=False))
+            for g, w, what in zip(out_s, want, ("heavy_idx", "heavy_ok",
+                                                "light_idx", "light_ok")):
+                _bitwise(g, w, f"{shape} turn {turn} {what}")
+
+
 def test_round_and_swap_launches_are_counted(card):
     """A fused solve runs K7 once per move round and per swap round, K2's
     leadership mode once per move round and K8 once per swap round."""
@@ -801,9 +866,9 @@ def test_round_and_swap_launches_are_counted(card):
     GoalOptimizer(CruiseControlConfig(), device="cuda").optimizations(
         state, meta)
     n = kernels.LAUNCHES
-    assert n["select_sources_leadership"] == n["score_grid"] > 0
+    assert n["select_leadership"] == n["score_grid"] > 0
     assert n["swap_top_replicas"] > 0
-    assert n["slot_weights"] == n["select_sources_leadership"] \
+    assert n["slot_weights"] == n["select_leadership"] \
         + n["swap_top_replicas"]
     # K7 counts the round's offline replicas: K1's offline mode is off it.
     assert n["segment_reduce_offline"] == 0

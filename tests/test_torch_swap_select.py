@@ -8,8 +8,10 @@
   crafted ones: ties, signed zeros, a broker with fewer than j finite
   replicas (top_k's -inf padding, lowest flat indices first) and brokers
   with none (every replica non-finite, or no replica at all).
-- ``csrc/swap_select.cu`` built as host C++ with g++ (no ``__CUDACC__``)
-  against the twin on the same inputs, bit for bit.
+- ``csrc/swap_select.cu`` built as host C++ with g++ (no ``__CUDACC__``:
+  the CTAs' streams in turn, then the merge of their lists) against the
+  twin on the same inputs, bit for bit, with 1 to 2,048 CTAs, and on a
+  broker that holds many CTAs' worth of hits.
 """
 
 import ctypes
@@ -133,12 +135,13 @@ def _host_library(tmp_dir):
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(out)
     lib.cc_swap_top_replicas_host.argtypes = [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
     return lib
 
 
-def host_top_replicas(lib, state, weight, src_b, dst_b, j):
-    """K8's selection built for the host: (flat_idx, valid), [2, k, j]."""
+def host_top_replicas(lib, state, weight, src_b, dst_b, j, ctas=1):
+    """K8's selection built for the host, its CTAs in turn and then the
+    merge: (flat_idx, valid), [2, k, j]."""
     p, s = state.assignment.shape
     k = src_b.shape[0]
     brokers = torch.cat([src_b, dst_b]).to(torch.int32).contiguous()
@@ -148,23 +151,55 @@ def host_top_replicas(lib, state, weight, src_b, dst_b, j):
     assert lib.cc_swap_top_replicas_host(
         w.data_ptr(), state.assignment.data_ptr(),
         state.partition_mask.data_ptr(), brokers.data_ptr(), p, s, k, j,
-        flat_idx.data_ptr(), valid.data_ptr()) == 0
+        flat_idx.data_ptr(), valid.data_ptr(), ctas) == 0
     return flat_idx, valid
 
 
-@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("kind", KINDS + ("hot_broker",))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_kernel_built_for_the_host_equals_the_twin(case, kind,
                                                    tmp_path_factory):
+    """``hot_broker``: slot 0 of 60 % of the partitions on src_b[0], which
+    is also dst_b[0], on the tied weights: many CTAs' worth of hits on one
+    broker, every CTA's lists full."""
     if shutil.which("g++") is None:
         pytest.skip("needs a host C++ compiler")
     lib = _host_library(str(tmp_path_factory.getbasetemp()))
-    _js, _jd, ts, _td, w, src_b, dst_b, _s, _d = _inputs(case, kind)
+    hot = kind == "hot_broker"
+    _js, _jd, ts, _td, w, src_b, dst_b, _s, _d = _inputs(
+        case, "ties" if hot else kind)
+    if hot:
+        a = ts.assignment.numpy().copy()
+        rng = np.random.default_rng(5)
+        a[rng.random(a.shape[0]) < 0.6, 0] = src_b[0]
+        dst_b = dst_b.copy()
+        dst_b[0] = src_b[0]
+        ts = dataclasses.replace(ts, assignment=torch.from_numpy(a))
     wt, sb, db = (torch.from_numpy(x) for x in (w, src_b, dst_b))
     for j in (1, 3, J):
-        flat_idx, valid = host_top_replicas(lib, ts, wt, sb, db, j)
         want = tsearch.swap_top_replicas(ts, wt, sb, db, j)
-        _same(flat_idx[0], want[0], f"{case} {kind} j={j} heavy idx")
-        _same(valid[0], want[1], f"{case} {kind} j={j} heavy ok")
-        _same(flat_idx[1], want[2], f"{case} {kind} j={j} light idx")
-        _same(valid[1], want[3], f"{case} {kind} j={j} light ok")
+        for ctas in (1, 7, 64, 2048):
+            flat_idx, valid = host_top_replicas(lib, ts, wt, sb, db, j, ctas)
+            what = f"{case} {kind} j={j} ctas={ctas}"
+            _same(flat_idx[0], want[0], f"{what} heavy idx")
+            _same(valid[0], want[1], f"{what} heavy ok")
+            _same(flat_idx[1], want[2], f"{what} light idx")
+            _same(valid[1], want[3], f"{what} light ok")
+
+
+def test_phase_probe_stops_after_each_phase():
+    """``testing/kernel_phases.py k8`` builds K8's source once a phase,
+    each build stopping after its phase: every text it edits is in the
+    source once, each build but the last differs from the source, and
+    the last is the source."""
+    from cruise_control_tpu_torch.testing import kernel_phases
+    source = (kernels.CSRC / "swap_select.cu").read_text()
+    design, builds = kernel_phases.variants("k8", source)
+    assert design == "cooperative"
+    names = [name for name, _edits in kernel_phases._K8_STOPS]
+    assert list(builds) == names
+    for _name, edits in kernel_phases._K8_STOPS:
+        for old, _new in edits:
+            assert source.count(old) == 1, old
+    assert builds[names[-1]] == source
+    assert all(builds[name] != source for name in names[:-1])
