@@ -164,9 +164,11 @@ launches are counted per replay of each graph.
     sums and verdicts and KD3's planes bit for bit); one sweep of each
     goal from its recorded entry under
     ``torch.cuda.set_sync_debug_mode("error")``; each kernel timed on its
-    largest call beside its twin on the card, its bound and one PyTorch
-    call (``torch.sort``, ``torch.cumsum``, ``torch.searchsorted``; none
-    for KD3); then a steady solve, launch counts reset and read (every KD
+    largest call, and KD1 also on a position-keyed sort, beside its twin
+    on the card, its bound and one PyTorch call (``torch.sort``,
+    ``torch.cumsum``, ``torch.searchsorted``; none for KD3), its device
+    ops a call held to its limit (KD1 one launch more than its radix
+    passes, KD2-KD4 one); then a steady solve, launch counts reset and read (every KD
     kernel and every round kernel launched, nothing captured), held to
     the entry as phase 5 holds its own, each goal's direct moves and
     sweeps included, the digests printed.
@@ -379,27 +381,35 @@ def to_cpu(obj):
     return obj.cpu() if isinstance(obj, torch.Tensor) else obj
 
 
-def snapshot(obj):
+def snapshot(obj, _memo=None):
     """A recorded argument with every tensor in it cloned: a round's
     inputs may be the round loop's static buffers, which later replays
-    overwrite."""
+    overwrite. A tensor met twice is cloned once, so the copy keeps the
+    call's aliasing (KD2 judges checks that share a table as one)."""
     import dataclasses
     import types
 
     import torch
+    memo = {} if _memo is None else _memo
+
+    def again(x):
+        return snapshot(x, memo)
+
     if isinstance(obj, torch.Tensor):
-        return obj.clone()
+        if id(obj) not in memo:
+            memo[id(obj)] = obj.clone()
+        return memo[id(obj)]
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return dataclasses.replace(obj, **{
-            f.name: snapshot(getattr(obj, f.name))
+            f.name: again(getattr(obj, f.name))
             for f in dataclasses.fields(obj) if f.init})
     if isinstance(obj, types.SimpleNamespace):
-        return types.SimpleNamespace(**{k: snapshot(v)
+        return types.SimpleNamespace(**{k: again(v)
                                         for k, v in vars(obj).items()})
     if isinstance(obj, (list, tuple)):
-        return type(obj)(snapshot(x) for x in obj)
+        return type(obj)(again(x) for x in obj)
     if isinstance(obj, dict):
-        return {k: snapshot(v) for k, v in obj.items()}
+        return {k: again(v) for k, v in obj.items()}
     return obj
 
 
@@ -1426,16 +1436,25 @@ def speculative_cost(chain_mod, bounded_solve, ref, fields,
 # The direct-assignment transport's kernels KD1-KD4: their device kernels
 # (profiler names), sources and the reference code they replace.
 DIRECT_KERNELS = {
-    "direct_sort": ["init_kernel", "hist_kernel", "scan_kernel",
-                    "scatter_kernel", "copy_out_kernel"],
-    "segment_scan": ["up_kernel", "seq_kernel", "down_kernel",
-                     "prep_max_kernel", "finish_kernel"],
+    "direct_sort": ["count_kernel", "pass_kernel"],
+    "segment_scan": ["scan_kernel"],
     "direct_plan": ["plan_kernel"],
     "direct_fill": ["fill_kernel"],
 }
-# The device ops of one call of KD3 and KD4 (KD1's and KD2's depend on
-# the key width and the size).
-DIRECT_OPS = {"direct_plan": 1, "direct_fill": 1}
+# The device ops of one call of KD2, KD3 and KD4.
+DIRECT_OPS = {"segment_scan": 1, "direct_plan": 1, "direct_fill": 1}
+
+
+def direct_ops_limit(kernel, args) -> int:
+    """The most device ops one call may take: KD1 one count launch and a
+    launch a radix pass (4 over a second key, one a byte of the key);
+    the others ``DIRECT_OPS``."""
+    if kernel != "direct_sort":
+        return DIRECT_OPS[kernel]
+    from cruise_control_tpu_torch.analyzer.direct_kernels import key_bits
+    second = args[2] if len(args) > 2 else None
+    return 1 + (4 if second is not None else 0) \
+        + -(-key_bits(int(args[1])) // 8)
 DIRECT_REPLACES = {
     "direct_sort": ("cruise_control_tpu_torch/csrc/direct_sort.cu",
                     "cruise_control_tpu/analyzer/direct.py:653"),
@@ -1631,9 +1650,11 @@ def direct_line(kernel, call, label: str) -> dict:
         DIRECT_KERNELS[kernel], nbytes, ops,
         library_fn=direct_library_fn(kernel, args), reps=10))
     ops = line["device_launches_per_call"]
-    if kernel in DIRECT_OPS and ops is not None and ops != DIRECT_OPS[kernel]:
-        fail(f"{kernel} at {label}: {ops} device ops a call, not "
-             f"{DIRECT_OPS[kernel]}")
+    limit = direct_ops_limit(kernel, args)
+    line["device_ops_limit"] = limit
+    if ops is not None and ops > limit:
+        fail(f"{kernel} at {label}: {ops} device ops a call, above its "
+             f"{limit}")
     print(f"{kernel} at {label}: {line['ms']:.4f} ms (device "
           f"{line['device_ms']}, {line['device_launches_per_call']} device "
           f"ops a call), twin on the card {line['plain_ms']:.4f} ms, "
@@ -2612,6 +2633,14 @@ def main() -> int:
                 f"{goal}, {variant})")
                 for kernel, (size, goal, variant, call)
                 in drec.largest.items()}
+            # KD1's position-keyed sort (no second key) has a row of its
+            # own: the first of the goal the largest sort was made for.
+            sort_goal = drec.largest["direct_sort"][1]
+            keyed = drec.calls.get(("direct_sort", sort_goal, "keyed"))
+            if keyed is not None:
+                timed["direct_sort_keyed"] = direct_line(
+                    "direct_sort", keyed, f"{label}, position-keyed sort "
+                    f"({keyed[0][0].numel():,} elements, {sort_goal})")
             if phase == "14b":
                 # No PyTorch sort, cumsum or searchsorted over P*S in a
                 # sweep: KD1-KD4 do that work.
@@ -2790,7 +2819,12 @@ def main() -> int:
             launches_1k_100k_direct=direct_paths["1k_100k_direct"][
                 "launches"].get(name, 0),
             **direct_lines["7k_1m_direct"][name],
-            other_shapes=[direct_lines["1k_100k_direct"][name]]))
+            other_shapes=[direct_lines[entry][key]
+                          for entry, key in (
+                              ("1k_100k_direct", name),
+                              ("7k_1m_direct", f"{name}_keyed"),
+                              ("1k_100k_direct", f"{name}_keyed"))
+                          if key in direct_lines[entry]]))
     print(json.dumps({"kernels": kernel_lines, "card": card,
                       "rounds_per_block": chain_mod.ROUNDS_PER_BLOCK,
                       "fused_100_10k": {"warmup_s": warm_100_s,

@@ -42,7 +42,7 @@ from ..model.tensors import (
     FIELDS, ClusterTensors, alive_mask, broker_segments, offline_replicas,
 )
 from ..utils import graphs
-from ..utils.numerics import VECTOR_SUM_LENGTHS, xla_sum, xla_vector_sum
+from ..utils.numerics import xla_sum, xla_vector_sum
 from . import agg as agg_mod
 from .agg import (
     AggCarry, apply_deltas_to_agg, compute_agg, maybe_refresh,
@@ -53,7 +53,6 @@ from .constraint import BalancingConstraint
 from .derived import compute_derived
 from .fill import pow2_width, targets_enabled
 from .goals.base import Goal
-from .goals.distribution import ResourceDistributionGoal
 from .score_grid import goal_table, recheck, score_grid
 from .search import (
     ExclusionMasks, OptimizationFailureError, SearchConfig,
@@ -267,28 +266,86 @@ def chain_all_violations(state: ClusterTensors, goals: tuple[Goal, ...],
     return torch.stack(totals)
 
 
+# How XLA:CPU compiles the reference's ``chain_all_goal_stats`` at 16-32
+# brokers (its optimized HLO and LLVM IR, ``XLA_FLAGS=--xla_dump_to``, for
+# the default goal chain on ``random_cluster(B, 48, 640, rf=2,
+# num_racks=4)``, with and without a replica-move exclusion): each goal's
+# violation reduce over the brokers is its own fusion, scalar and
+# sequential (``xla_sum``) except where LLVM's loop vectorizer took it
+# (``xla_vector_sum``). Goal: (broker counts without the exclusion, with
+# it, whether the operand is a strided column whose load group leaves a
+# gap). The four resource distribution goals read a column of the [B, 4]
+# load (at 18 brokers without the exclusion the CPU column stayed scalar),
+# the capacity goals and PotentialNwOutGoal too; the replica and leader
+# count goals a contiguous [B] (XLA emitted one kernel for both). Every
+# other goal of the chain (rack, replica capacity, topic replica, leader
+# bytes-in) stayed sequential at every length, or sums exact integers.
+STATS_VECTOR_REDUCE = {
+    "CpuUsageDistributionGoal": (range(19, 33), range(16, 33), True),
+    "DiskUsageDistributionGoal": (range(18, 33), range(16, 33), True),
+    "NetworkInboundUsageDistributionGoal": (range(18, 33), range(16, 33),
+                                            True),
+    "NetworkOutboundUsageDistributionGoal": (range(18, 33), range(16, 33),
+                                             True),
+    "CpuCapacityGoal": (range(28, 33), range(28, 33), True),
+    "DiskCapacityGoal": (range(25, 33), range(25, 33), True),
+    "NetworkInboundCapacityGoal": (range(25, 33), range(25, 33), True),
+    "NetworkOutboundCapacityGoal": (range(25, 33), range(25, 33), True),
+    "PotentialNwOutGoal": (range(28, 33), range(28, 33), True),
+    "ReplicaDistributionGoal": (range(23, 33), range(23, 33), False),
+    "LeaderReplicaDistributionGoal": (range(23, 33), range(23, 33), False),
+}
+# With the exclusion, the same program also vectorizes the two column sums
+# of the average utilization (``compute_derived``) from 25 brokers on: 8
+# lanes over the first 24 brokers of each strided column at 25-27 and 32,
+# two interleaved 4-lane accumulators at 28-31 (added lane by lane and
+# reduced by halves: the same bits as the 8 lanes, as the IR reads). At
+# 28-31 the compiled program's bits still differ from that form in some
+# cases (ROADMAP, Queue C).
+STATS_VECTOR_AVG_LENGTHS = range(25, 33)
+
+
+def _stats_derived(state: ClusterTensors, masks: ExclusionMasks):
+    """``_derived`` with the average utilization summed as the stats
+    snapshot's program sums it (``STATS_VECTOR_AVG_LENGTHS``)."""
+    derived = _derived(state, masks)
+    excluded = masks.excluded_replica_move_brokers
+    if excluded is None or state.num_brokers not in STATS_VECTOR_AVG_LENGTHS:
+        return derived
+    allowed = derived.allowed_replica_move[:, None]
+    cols = range(state.capacity.shape[1])
+    cap = torch.clamp(torch.stack([xla_vector_sum(
+        (state.capacity * allowed)[:, r].contiguous()) for r in cols]),
+        min=1e-9)
+    load = torch.stack([xla_vector_sum(
+        (derived.broker_load * allowed)[:, r].contiguous()) for r in cols])
+    return dataclasses.replace(derived, avg_util=load / cap)
+
+
 def chain_all_goal_stats(state: ClusterTensors, goals: tuple[Goal, ...],
                          constraint: BalancingConstraint, num_topics: int,
                          masks: ExclusionMasks,
                          ) -> tuple[np.ndarray, np.ndarray, int]:
     """([G] violation, [G] objective, offline replicas) of every goal on
     ``state`` (derived state shared), in one host read: the bounded
-    path's fingerprint-skip snapshot."""
-    derived = _derived(state, masks)
-    # With a replica-move exclusion mask in the program, XLA:CPU
-    # vectorizes the resource distribution goals' violation reduce at some
-    # broker counts (``xla_vector_sum``).
-    vectorized = masks.excluded_replica_move_brokers is not None \
-        and state.num_brokers in VECTOR_SUM_LENGTHS
+    path's fingerprint-skip snapshot. Each goal's violation is reduced as
+    the reference's compiled snapshot reduces it
+    (``STATS_VECTOR_REDUCE``), and a goal whose objective is its total
+    violation reports that same value (XLA computes it once)."""
+    derived = _stats_derived(state, masks)
+    column = 1 if masks.excluded_replica_move_brokers is not None else 0
     viols, objs = [], []
     for g in goals:
         aux = goal_aux(g, state, derived, constraint, num_topics)
         per_broker = g.broker_violations(state, derived, constraint,
                                          aux).to(torch.float32)
-        viols.append(xla_vector_sum(per_broker)
-                     if vectorized and isinstance(g, ResourceDistributionGoal)
-                     else xla_sum(per_broker, 0))
-        objs.append(g.objective(state, derived, constraint, aux)
+        form = STATS_VECTOR_REDUCE.get(g.name)
+        viol = xla_vector_sum(per_broker, gap=form[2]) \
+            if form is not None and state.num_brokers in form[column] \
+            else xla_sum(per_broker, 0)
+        viols.append(viol)
+        objs.append(viol if type(g).objective is Goal.objective
+                    else g.objective(state, derived, constraint, aux)
                     .to(torch.float32))
     offline = offline_replicas(state).sum().to(torch.float32)
     host = torch.stack(viols + objs + [offline]).cpu().numpy()

@@ -148,10 +148,13 @@ def _load_checks(state, derived, constraint, guards: DirectGuards,
     thresholds at the destination (``_dst_load_caps``), lower bands at the
     source (``_src_load_floors``)."""
     checks = []
+    # One padded load column a resource, shared by its band and capacity
+    # checks: KD2 judges checks on the same table and column as one.
+    loads = {}
     for r in guards.resources:
         lo_r, up_r, _c = resource_limits(state, derived, constraint,
                                          Resource(r))
-        load = _pad(derived.broker_load[:, r], 0.0)
+        load = loads.setdefault(r, _pad(derived.broker_load[:, r], 0.0))
         if floors:
             checks.append(Check(limit=_pad(lo_r, float("-inf")), base=load,
                                 column=r, own_column=r, floor=True))
@@ -162,7 +165,8 @@ def _load_checks(state, derived, constraint, guards: DirectGuards,
         for r in guards.cap_resources:
             limit = constraint.capacity_threshold[r] * state.capacity[:, r]
             checks.append(Check(limit=_pad(limit, float("inf")),
-                                base=_pad(derived.broker_load[:, r], 0.0),
+                                base=loads.setdefault(r, _pad(
+                                    derived.broker_load[:, r], 0.0)),
                                 column=r, own_column=r))
     return checks
 

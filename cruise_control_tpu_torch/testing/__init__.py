@@ -10,7 +10,8 @@ port's card run against them without importing JAX. The module also
 holds what the card checks and the tests share: the kernels' adversarial
 inputs, the swap grid's inputs, the CUDA-graph capture that counts a
 call's launches, K3's edge cases (``k3_case``), the JBOD disk fixtures of
-K5 (``jbod_disks``, ``sentinel_case``, ``random_disk_case``), all built
+K5 (``jbod_disks``, ``sentinel_case``, ``random_disk_case``), KD1's and
+KD2's edge cases (``kd1_case``, ``kd2_case``, ``kd2_checks``), all built
 from numpy alone, and K7's goal of each weight family
 (``K7_FAMILY_GOALS``).
 
@@ -868,3 +869,105 @@ def k6_mismatches(rec: dict) -> list[str]:
                        sg.recheck_plain(*rec["recheck"][:9])):
         bad.append("recheck")
     return bad
+
+
+# KD1's edge cases (``kd1_case``): the names, and the sizes the tests use
+# (N = 1, about a 2,048-element half tile, one 4,096-element tile and one
+# element either side, and many tiles).
+KD1_CASES = ("all_ties", "signed_zeros", "nan_inf", "near_max_key",
+             "top_bit", "sentinel", "wide_keys")
+KD1_SIZES = (1, 2047, 2049, 4095, 4096, 4097, 100_003)
+
+
+def kd1_case(name: str, n: int, seed: int = 0):
+    """(int32 keys, f32 second keys, key_max) of one KD1 edge case, from
+    numpy alone: every key and second key tied; signed zeros among a few
+    keys; NaNs of both signs, infinities, denormals and the extremes;
+    keys near 2**23 - 1 and near 2**31 - 1 (every key pass runs); every
+    key on the sentinel (the key passes trivial); the mover sort's cell
+    keys at 7k/1M with 30 % on the sentinel."""
+    rng = np.random.default_rng(seed + n)
+    if name == "all_ties":
+        return np.zeros(n, np.int32), np.zeros(n, np.float32), 0
+    if name == "signed_zeros":
+        key = rng.integers(0, 3, n).astype(np.int32)
+        sec = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+        sec[::7] = rng.choice([1.0, -1.0, np.inf, -np.inf], n)[::7]
+        return key, sec, 2
+    if name == "nan_inf":
+        pool = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0,
+                         -1.0, 1e-45, -1e-45, 3.4028235e38, -3.4028235e38],
+                        np.float32)
+        sec = rng.choice(pool, n)
+        sec[rng.random(n) < 0.1] = np.float32(np.nan) * -1.0
+        return rng.integers(0, 5, n).astype(np.int32), sec, 4
+    if name in ("near_max_key", "top_bit"):
+        key_max = 2 ** 23 - 1 if name == "near_max_key" else 2 ** 31 - 1
+        key = (key_max - rng.integers(0, 9, n)).astype(np.int32)
+        key[rng.random(n) < 0.2] = rng.integers(0, 256)
+        sec = rng.integers(-3, 4, n).astype(np.float32) * 0.25
+        return key, sec, key_max
+    if name == "sentinel":
+        key_max = 700 * 7001
+        return (np.full(n, key_max, np.int32),
+                rng.exponential(1.0, n).astype(np.float32), key_max)
+    key_max = 700 * 7001
+    key = rng.integers(0, key_max + 1, n).astype(np.int32)
+    key[rng.random(n) < 0.3] = key_max
+    sec = rng.integers(0, 4, n).astype(np.float32) * 0.5
+    return key, sec, key_max
+
+
+# KD2's edge cases (``kd2_case``): segment layouts, and N at 16^k and one
+# either side for k = 1..4 (every level of the 16-blocked scan full,
+# partial or one over) plus 16^5 + 1 (two levels above the tiles).
+KD2_CASES = ("one_segment", "many_segments", "length_one", "span_tiles")
+KD2_SIZES = (15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 65535, 65536,
+             65537)
+
+
+def kd2_case(name: str, n: int, r: int, seed: int = 0):
+    """(sorted int32 keys [N], non-negative f32 values [N, r], table
+    length) of one KD2 edge case, from numpy alone: one segment; segments
+    of about five; every segment of length 1; segments of 3,000-9,000
+    elements, so they span tiles. A third of the values are 0."""
+    rng = np.random.default_rng(seed + 7 * n + r)
+    if name == "one_segment":
+        keys = np.zeros(n, np.int32)
+    elif name == "length_one":
+        keys = np.arange(n, dtype=np.int32)
+    elif name == "span_tiles":
+        cuts = np.cumsum(rng.integers(3000, 9000, n // 3000 + 2))
+        keys = np.searchsorted(cuts, np.arange(n), side="right").astype(
+            np.int32)
+    else:
+        keys = np.sort(rng.integers(0, max(1, n // 5), n)).astype(np.int32)
+    vals = (rng.exponential(1.0, (n, r))
+            * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(np.float32)
+    vals[rng.random((n, r)) < 0.3] = 0.0
+    return keys, vals, int(keys.max()) + 1
+
+
+def kd2_checks(n: int, r: int, table: int, count: int = 12, seed: int = 0):
+    """``count`` KD2 checks as (limit, base, column, own_column, floor,
+    gate) numpy tuples, in pairs that share all but their limit (the same
+    base and gate arrays, so KD2 judges a pair as one): caps and floors,
+    with and without a base table, an own column and a gate, over every
+    column; a cap's last limit +inf (the sentinel's)."""
+    rng = np.random.default_rng(seed + n + r)
+    out = []
+    for c in range(count):
+        j = c // 2
+        if c % 2 == 0:
+            floor = j % 3 == 2
+            base = rng.exponential(5.0, table).astype(np.float32) \
+                if j % 2 == 1 else None
+            gate = rng.random(n) < 0.5 if j % 4 == 3 else None
+            own = (j % r) if j % 3 != 0 else None
+        limit = rng.exponential(50.0, table).astype(np.float32)
+        if floor:
+            limit = -limit
+        else:
+            limit[-1] = np.inf
+        out.append((limit, base, j % r, own, floor, gate))
+    return out

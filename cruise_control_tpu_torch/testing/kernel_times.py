@@ -50,7 +50,17 @@ alone, the same way (``k8_``, ``k8_cold_``), on the inputs one eager
 swap round gives it: DiskUsageDistributionGoal's (the default chain's
 first goal with swap rounds, every earlier goal prior) at 1k/100k and at
 7k/1M, and KafkaAssignerDiskUsageDistributionGoal's (the kafka-assigner
-chain's swap goal, its rack goal prior) at 1k/100k. Prints one JSON line
+chain's swap goal, its rack goal prior) at 1k/100k. ``--kd1-only`` and
+``--kd2-only`` time the direct transport's KD1 (``sort_pairs``) and KD2
+(``segment_scan``) alone, the same way (``kd1_``, ``kd1_cold_``,
+``kd2_``, ``kd2_cold_``), on the calls one sweep of
+TopicReplicaDistributionGoal's transport makes from the entry fixture of
+``1k_100k`` and ``7k_1m`` (the default chain's earlier goals as its
+guards): KD1's (cell, weight) mover sort and first position-keyed sort,
+KD2's scan of the four load columns with the resource guards' checks;
+beside each, one PyTorch call of the same size (``torch.sort`` of the
+composite key; one 1-D ``torch.cumsum`` over the N * R values), which the
+port never calls. Prints one JSON line
 a root and turn (the grid's rows, the ms of each kernel by name, their
 sum). The card's name
 and power limit come first. Needs a CUDA device; imports nothing of JAX.
@@ -249,6 +259,86 @@ if MODE in ("k2l", "k8"):
             out[f"{MODE}{tag}_{name}"] = dict(**info, **device_ops(f))
     print(json.dumps(out))
     sys.exit(0)
+if MODE in ("kd1", "kd2"):
+    import dataclasses
+    from cruise_control_tpu_torch.analyzer import direct as direct_d
+    from cruise_control_tpu_torch.analyzer import direct_kernels as dk_d
+    from cruise_control_tpu_torch.analyzer.search import ExclusionMasks
+    from cruise_control_tpu_torch.utils.numerics import total_order_key
+    flush64 = torch.zeros(32 << 20, dtype=torch.float64, device=dev)
+
+    def snap(x, memo=None):
+        # Cloned once a tensor, so the copy keeps the call's aliasing (KD2
+        # judges checks that share a table as one).
+        memo = {} if memo is None else memo
+        if isinstance(x, torch.Tensor):
+            if id(x) not in memo:
+                memo[id(x)] = x.clone()
+            return memo[id(x)]
+        if dataclasses.is_dataclass(x):
+            return dataclasses.replace(x, **{
+                f.name: snap(getattr(x, f.name), memo)
+                for f in dataclasses.fields(x)})
+        if isinstance(x, (list, tuple)):
+            return type(x)(snap(v, memo) for v in x)
+        return x
+
+    def library(kind, a):
+        if kind == "kd1":
+            key, second = a[0], a[2] if len(a) > 2 else None
+            if second is None:
+                return lambda: torch.sort(key, stable=True)
+            comp = key.long() * 2 ** 32 + total_order_key(
+                dk_d.sort_order_second(second)).long() + 2 ** 31
+            return lambda: torch.sort(comp, stable=True)
+        flat = a[1].t().contiguous().reshape(-1)
+        return lambda: torch.cumsum(flat, 0)
+
+    for entry in ("1k_100k", "7k_1m"):
+        state, meta = build_fixture(refs[entry], dev)
+        goals = k6_goals("default", state.num_brokers)
+        index = [g.name for g in goals].index("TopicReplicaDistributionGoal")
+        calls = {}
+        orig_sort, orig_scan = direct_d.sort_pairs, direct_d.segment_scan
+
+        def rec_sort(*a, **kw):
+            mover = len(a) > 2 and a[2] is not None
+            calls.setdefault(("kd1", "mover_sort" if mover
+                              else "keyed_sort"), snap((a, kw)))
+            return orig_sort(*a, **kw)
+
+        def rec_scan(*a, **kw):
+            if len(a) > 2 and a[2] and a[1].dim() == 2:
+                calls.setdefault(("kd2", "load_guards"), snap((a, kw)))
+            return orig_scan(*a, **kw)
+
+        direct_d.sort_pairs, direct_d.segment_scan = rec_sort, rec_scan
+        try:
+            direct_d._direct_sweep(state, goals, index, BalancingConstraint(),
+                                   meta.num_topics, ExclusionMasks())
+        finally:
+            direct_d.sort_pairs, direct_d.segment_scan = orig_sort, orig_scan
+        torch.cuda.synchronize()
+        for (kind, what), (a, kw) in sorted(calls.items()):
+            if kind != MODE:
+                continue
+            fn = (dk_d.sort_pairs if kind == "kd1" else dk_d.segment_scan)
+            info = dict(n=int(a[0].numel()),
+                        values=int(a[1].numel()) if kind == "kd2" else None)
+
+            def call(fn=fn, a=a, kw=kw):
+                return fn(*a, **kw)
+
+            for tag, f in (("", call), ("_cold", lambda c=call: (
+                    flush64.add_(1.0), c()))):
+                out[f"{kind}{tag}_{entry}_{what}"] = dict(
+                    **info, **device_ops(f))
+            lib = library(kind, a)
+            out[f"{kind}_library_{entry}_{what}"] = dict(
+                **info, **device_ops(lib))
+        del calls, state
+    print(json.dumps(out))
+    sys.exit(0)
 big, big_meta = random_cluster(7000, 700, 1_000_000, rf=3, num_racks=8,
                                seed=42, skew_to_first=2.0,
                                target_utilization=0.55,
@@ -328,12 +418,15 @@ def main() -> int:
     only.add_argument("--k3-only", action="store_true")
     only.add_argument("--k2l-only", action="store_true")
     only.add_argument("--k8-only", action="store_true")
+    only.add_argument("--kd1-only", action="store_true")
+    only.add_argument("--kd2-only", action="store_true")
     args = ap.parse_args()
     from . import K7_FAMILY_GOALS, k7_family_goal_args
     families = {f: k7_family_goal_args(f, 7000) for f in K7_FAMILY_GOALS}
     child_args = [json.dumps(families),
                   "k7" if args.k7_only else "k3" if args.k3_only
                   else "k2l" if args.k2l_only else "k8" if args.k8_only
+                  else "kd1" if args.kd1_only else "kd2" if args.kd2_only
                   else "all"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -16,7 +16,9 @@ card in alternation. Each process builds that root's kernels if needed,
 solves the entry NAME (default ``1k_100k``) of
 ``testing/reference_outcomes.json`` with its config and chain
 (``solver.dispatch.target.seconds=0``) once to warm up and once timed, and
-prints one JSON line: root, turn, wall seconds, rounds and whether the
+prints one JSON line: root, turn, wall seconds, the goals' summed and
+per-goal durations (``GoalResult.duration_s``: the rest of the wall is
+the solve's work outside the goal loop), rounds and whether the
 assignment digest equals the reference's. The card's name and power limit
 come first. Needs a CUDA device; imports nothing of JAX.
 """
@@ -50,6 +52,9 @@ for timed in (False, True):
     torch.cuda.synchronize()
     wall = time.time() - t0
 print(json.dumps({"wall_s": wall,
+                  "goals_s": sum(g.duration_s for g in result.goal_results),
+                  "goal_s": {g.name: round(g.duration_s, 4)
+                             for g in result.goal_results},
                   "rounds": sum(g.rounds for g in result.goal_results),
                   "assignment_equal": digest(final.assignment.cpu().numpy())
                   == ref["assignment_sha256"]}))

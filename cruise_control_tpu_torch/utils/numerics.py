@@ -80,25 +80,28 @@ def _halves(lanes: torch.Tensor) -> torch.Tensor:
     return lanes[0]
 
 
-def xla_vector_sum(x: torch.Tensor) -> torch.Tensor:
+def xla_vector_sum(x: torch.Tensor, gap: bool = True) -> torch.Tensor:
     """Sum of a 1-D f32 tensor whose length is in ``VECTOR_SUM_LENGTHS``
     as XLA:CPU emits a fused reduce that LLVM's loop vectorizer took.
 
     At 16-19 and 24-32 elements: 8 lanes (AVX2's 256 bits), lane j adding
     elements j, j+8, ... in turn, over the first 8 * floor((n - 1) / 8)
-    elements (the loop reads its operand with a strided load whose group
-    leaves a gap, so at least one iteration is left to the scalar
-    epilogue); the lanes then reduced by halves (lane j + lane j+4, then
-    j + j+2, then 0 + 1); then the remaining elements added in index
-    order. At 20-23: 4 lanes over the first 16 elements (four interleaved
+    elements (``gap``: the loop reads its operand with a strided load
+    whose group leaves a gap, so at least one iteration is left to the
+    scalar epilogue), or over the first 8 * floor(n / 8) (``gap`` False: a
+    contiguous operand); the lanes then reduced by halves (lane j + lane
+    j+4, then j + j+2, then 0 + 1); then the remaining elements added in
+    index order. Two interleaved 4-lane accumulators over the same
+    elements, added lane by lane and then reduced by halves, give the same
+    bits as the 8 lanes. At 20-23: 4 lanes over the first 16 elements (four interleaved
     accumulators of elements 0-3, 4-7, 8-11 and 12-15, added in that
     order), reduced by halves; from 21 elements on, a 4-lane epilogue
     adds elements 16-19 to a vector holding that sum in lane 0 and is
     reduced by halves again; then the rest in index order. The
-    reference's optimized HLO and LLVM IR show these forms in the
-    resource distribution goals' violation reduce when a replica-move
-    exclusion mask enters it; without the mask that reduce is scalar and
-    sequential (``xla_sum``)."""
+    reference's optimized HLO and LLVM IR show these forms in the goals'
+    violation reduces and the average utilization's column sums of its
+    stats snapshot (``analyzer/chain.py::STATS_VECTOR_REDUCE`` says at
+    which lengths and for which goals)."""
     n = x.shape[0]
     if n not in VECTOR_SUM_LENGTHS:
         raise ValueError(f"xla_vector_sum: length {n} is not one at which "
@@ -110,7 +113,7 @@ def xla_vector_sum(x: torch.Tensor) -> torch.Tensor:
             acc = _halves(torch.cat([(acc + x[16]).reshape(1), x[17:20]]))
             done = 20
     else:
-        done = _VECTOR_LANES * ((n - 1) // _VECTOR_LANES)
+        done = _VECTOR_LANES * ((n - (1 if gap else 0)) // _VECTOR_LANES)
         acc = _halves(_seq_sum0(x[:done].reshape(-1, _VECTOR_LANES)))
     for i in range(done, n):
         acc = acc + x[i]

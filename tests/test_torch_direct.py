@@ -453,13 +453,8 @@ def _jax_solve(kw, props, options):
 def test_direct_solve_matches_jax(name):
     """Both optimizers with the transport on: per goal the direct pass's
     moves and sweeps, rounds and moves; the violated sets, balancedness,
-    dispatch statistics and the assignment and leader digests, exact.
-
-    At 24 brokers the violation fingerprint is left out: the port's entry
-    violation of NetworkOutboundUsageDistributionGoal differs from the
-    reference's in its last bit there (the reduce XLA vectorizes at that
-    length; ROADMAP, Open items), which the fingerprint hashes and nothing
-    else reads."""
+    dispatch statistics (the violation fingerprint among them) and the
+    assignment and leader digests, exact."""
     from cruise_control_tpu.analyzer.constraint import (
         OptimizationOptions as JOptions,
     )
@@ -482,11 +477,7 @@ def test_direct_solve_matches_jax(name):
     assert tr.balancedness_after == jr.balancedness_after
     assert len(tr.proposals) == len(jr.proposals)
     tstats = opt.last_dispatch_stats()
-    if name == "sparse":
-        jstats = {k: v for k, v in jstats.items()
-                  if k != "violation_fingerprint"}
-        tstats = {k: v for k, v in tstats.items()
-                  if k != "violation_fingerprint"}
+    assert tstats["violation_fingerprint"] is not None
     assert tstats == jstats
     assert digest(tf.assignment.numpy()) == digest(np.asarray(jf.assignment))
     assert digest(tf.leader_slot.numpy()) == \

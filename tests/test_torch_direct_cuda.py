@@ -21,6 +21,10 @@ from cruise_control_tpu_torch.analyzer import fill
 from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu_torch.config import CruiseControlConfig
 from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
+from cruise_control_tpu_torch.testing import (
+    KD1_CASES, KD1_SIZES, KD2_CASES, KD2_SIZES, kd1_case, kd2_case,
+    kd2_checks,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -37,26 +41,11 @@ def _bits(t: torch.Tensor) -> np.ndarray:
     return (t.view(torch.int32) if t.dtype == torch.float32 else t).numpy()
 
 
-def _sort_case(name: str, n: int, rng):
-    if name == "all_ties":
-        return np.zeros(n, np.int32), np.zeros(n, np.float32), 0
-    if name == "signed_zeros":
-        key = rng.integers(0, 3, n).astype(np.int32)
-        sec = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
-        sec[::7] = rng.choice([1.0, -1.0, np.inf, -np.inf], n)[::7]
-        return key, sec, 2
-    key_max = 700 * 7001
-    key = rng.integers(0, key_max + 1, n).astype(np.int32)
-    key[rng.random(n) < 0.3] = key_max
-    sec = rng.integers(0, 4, n).astype(np.float32) * 0.5
-    return key, sec, key_max
-
-
-@pytest.mark.parametrize("name", ["all_ties", "signed_zeros", "wide_keys"])
-@pytest.mark.parametrize("n", [1, 2047, 2049, 100_003])
+@pytest.mark.parametrize("name", KD1_CASES)
+@pytest.mark.parametrize("n", KD1_SIZES)
 @pytest.mark.parametrize("with_second", [True, False])
 def test_direct_sort_matches_twin(card, name, n, with_second):
-    key, sec, key_max = _sort_case(name, n, np.random.default_rng(n))
+    key, sec, key_max = kd1_case(name, n)
     kt, st = torch.as_tensor(key), torch.as_tensor(sec)
     want_k, want_p = dk.sort_pairs(kt, key_max, st if with_second else None)
     kernels.LAUNCHES.clear()
@@ -67,47 +56,47 @@ def test_direct_sort_matches_twin(card, name, n, with_second):
     np.testing.assert_array_equal(got_k.cpu().numpy(), want_k.numpy())
 
 
-def _scan_case(name: str, n: int, r: int, rng):
-    if name == "one_segment":
-        keys = np.zeros(n, np.int32)
-    else:
-        keys = np.sort(rng.integers(0, max(1, n // 5), n)).astype(np.int32)
-    vals = rng.exponential(1.0, (n, r)).astype(np.float32)
-    vals[rng.random((n, r)) < 0.3] = 0.0
-    return keys, vals
+def _card_checks(n, r, table, card, count):
+    """``testing.kd2_checks`` on ``card``; the arrays a pair shares become
+    one tensor, so KD2 judges the pair as one group."""
+    copies = {}
+
+    def on(x):
+        if x is None:
+            return None
+        if id(x) not in copies:
+            copies[id(x)] = torch.as_tensor(x).to(card)
+        return copies[id(x)]
+
+    return [dk.Check(limit=on(lim), base=on(base), column=col,
+                     own_column=own, floor=floor, gate=on(gate))
+            for lim, base, col, own, floor, gate
+            in kd2_checks(n, r, table, count)]
 
 
-@pytest.mark.parametrize("name", ["one_segment", "many_segments"])
-@pytest.mark.parametrize("n", [1, 16, 17, 5003, 300_001])
-@pytest.mark.parametrize("r", [1, 4])
+@pytest.mark.parametrize("name", KD2_CASES)
+@pytest.mark.parametrize("n", (1,) + KD2_SIZES + (300_001, 16 ** 5 + 1))
+@pytest.mark.parametrize("r", [1, 2, 3, 4])
 def test_segment_scan_matches_twin(card, name, n, r):
-    rng = np.random.default_rng(n + r)
-    keys, vals = _scan_case(name, n, r, rng)
+    keys, vals, table = kd2_case(name, n, r)
     k = torch.as_tensor(keys)
     v = torch.as_tensor(vals if r > 1 else vals[:, 0].copy())
-    table = int(keys.max()) + 1
-    perm = torch.as_tensor(rng.permutation(n).astype(np.int32))
-    gate = torch.as_tensor(rng.random(n) < 0.5)
-    base = torch.as_tensor(rng.exponential(5.0, table).astype(np.float32))
-    limit = torch.as_tensor(rng.exponential(50.0, table).astype(np.float32))
-    limit[-1] = float("inf")
-    checks = [dk.Check(limit=limit), dk.Check(
-        limit=limit, base=base, column=r - 1, own_column=r - 1),
-        dk.Check(limit=-limit, base=base, floor=True, gate=gate)]
+    perm = torch.as_tensor(
+        np.random.default_rng(n + r).permutation(n).astype(np.int32))
+    count = {4: 12, 3: 8, 2: 3, 1: 3}[r]
+    checks = _card_checks(n, r, table, "cpu", count)
     want_e, want_v = dk.segment_scan(k, v, checks, perm)
     kernels.LAUNCHES.clear()
     got_e, got_v = dk.segment_scan(
-        k.to(card), v.to(card),
-        [dk.Check(limit=c.limit.to(card),
-                  base=None if c.base is None else c.base.to(card),
-                  column=c.column, own_column=c.own_column, floor=c.floor,
-                  gate=None if c.gate is None else c.gate.to(card))
-         for c in checks], perm.to(card))
+        k.to(card), v.to(card), _card_checks(n, r, table, card, count),
+        perm.to(card))
     assert kernels.LAUNCHES["segment_scan"] == 1
     np.testing.assert_array_equal(_bits(got_e), _bits(want_e))
     np.testing.assert_array_equal(got_v.cpu().numpy(), want_v.numpy())
     # int32 values (the ranks), exact.
-    ones = torch.as_tensor(rng.integers(0, 2, n).astype(np.int32))
+    ones = torch.as_tensor(np.random.default_rng(n).integers(
+        0, 2, vals.shape).astype(np.int32))
+    ones = ones if r > 1 else ones[:, 0].contiguous()
     want_i, _ = dk.segment_scan(k, ones)
     got_i, _ = dk.segment_scan(k.to(card), ones.to(card))
     np.testing.assert_array_equal(got_i.cpu().numpy(), want_i.numpy())
