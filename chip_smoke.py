@@ -132,9 +132,13 @@ launches are counted per replay of each graph.
     moves, the violations' bits and sums, replicas left on dead dirs).
     K5 against its twin on a CPU copy (disk assignment and final loads
     bit for bit) on both calls, at D = 4 and 8 on seeded random
-    placements at 1k/100k, on the sentinel-collision fixtures and on 40
-    small random ones; each timed beside the twin on the card and its
-    bound. K5's device launches per call must be the same at every
+    placements at 1k/100k, on the sentinel-collision fixtures, on 40
+    small random ones and on K5's edge cases (``testing.k5_edge_case``: a
+    broker at exactly 8,192 replicas, 32 dirs, brokers that run all 64
+    rounds, an active fix-up); each timed beside the twin on the card and
+    its bound, with each call's wall, the rounds of the broker that ran
+    most, the brokers above 8 rounds and the brokers without a pick above
+    a sentinel slot's owner printed. K5's device launches per call must be the same at every
     shape. K5's load mode (``disk_load``) bit for bit against its twin,
     run under ``torch.cuda.set_sync_debug_mode("error")`` (no host
     synchronisation), on both calls' disks, at D = 4 and 8 at 1k/100k and
@@ -554,9 +558,12 @@ K2_KERNELS = ["digit_kernel", "seed_kernel", "compact_kernel", "rank_kernel",
 # cluster (with the round's joint recheck and move cap in its last phase).
 K3_KERNELS = ["reduce_rows_kernel", "select_kernel"]
 K4_KERNELS = ["carry_copy_kernel", "event_fold_kernel"]
-# K5's kernels, the memset of its counts and the copy of the input disks.
-K5_KERNELS = ["count_kernel", "scan_kernel", "scatter_kernel",
-              "balance_kernel", "fixup_kernel", "Memset (",
+# K5's kernels (the grouping: the load mode's pass 1 with each slot's flat
+# index and the split into each broker's run; a warp a broker's loop with
+# its refold from the moved slot; the sentinel fix-up), the memset of the
+# largest count and the copy of the input disks: eight device ops a call.
+K5_KERNELS = ["load_count_kernel", "load_scan_kernel", "load_scatter_kernel",
+              "split_kernel", "balance_kernel", "fixup_kernel", "Memset (",
               "Memcpy DtoD"]
 # K5's load mode: bucket count, scan, scatter, fold.
 K5L_KERNELS = ["load_count_kernel", "load_scan_kernel",
@@ -870,13 +877,16 @@ def check_k5(disks_mod, state, disks, band, movable, label: str,
                 else 0 for kind, owner in zip(("pinned", "empty"), owners)}
     print(f"K5 intra_broker at {label}: ok (bitwise equal to the twin on "
           f"the CPU, {moved} replicas moved, rounds a broker up to "
-          f"{int(rounds.max())}, largest broker {most} replicas; brokers "
+          f"{int(rounds.max())}, {int((rounds > 8).sum())} brokers above 8 "
+          f"rounds, largest broker {most} replicas; brokers "
           f"without a pick: {len(no_pick['pinned'])} pinned, "
           f"{len(no_pick['empty'])} empty, above a sentinel owner "
           f"{owners}: {blocking}; twin on the CPU {twin_cpu_s:.2f} s)")
     ops = 2 * int((rounds.to(torch.int64) * replicas.to(torch.int64)).sum())
     line = dict(shape=label, max_abs_err=0.0, max_replicas_per_broker=most,
-                max_rounds_per_broker=int(rounds.max()), moved=moved,
+                max_rounds_per_broker=int(rounds.max()),
+                brokers_above_8_rounds=int((rounds > 8).sum()),
+                blocking_brokers=blocking, moved=moved,
                 library_call="none: no single PyTorch call runs a loop to "
                              "a fixed point",
                 **measure(lambda: disks_mod.balance_intra_broker(
@@ -1813,9 +1823,9 @@ def main() -> int:
             cluster_from_numpy, cluster_to_numpy, set_broker_state,
         )
         from cruise_control_tpu_torch.testing import (
-            DISK_OUTCOME_FIELDS, K6_CHAINS, K7_FAMILY_GOALS, OUTCOME_FIELDS,
-            SENTINEL_CASES, build_fixture, disk_outcome, entry_disks,
-            k2_round_inputs, k7_family_goal,
+            DISK_OUTCOME_FIELDS, K5_EDGE_CASES, K6_CHAINS, K7_FAMILY_GOALS,
+            OUTCOME_FIELDS, SENTINEL_CASES, build_fixture, disk_outcome,
+            entry_disks, k2_round_inputs, k5_edge_case, k7_family_goal,
             k4_adversarial_batch, k4_drain_batch, k6_goals, k6_mismatches,
             k6_round_inputs, last_broker_ids,
             crowded_broker_case, load_reference_outcomes, outcome,
@@ -2581,8 +2591,15 @@ def main() -> int:
                      disks_mod.disks_from_numpy(dk, dev), case_band,
                      torch.as_tensor(mv, device=dev), f"random case {seed}",
                      timed=False)
+        for name in K5_EDGE_CASES:
+            cl, dk, mv, case_band = k5_edge_case(name)
+            check_k5(disks_mod, cluster_from_numpy(cl, dev),
+                     disks_mod.disks_from_numpy(dk, dev), case_band,
+                     torch.as_tensor(mv, device=dev), f"edge case {name}",
+                     timed=False)
         print(f"K5: exact against its twin on the {len(SENTINEL_CASES)} "
-              f"sentinel cases and 40 small random cases")
+              f"sentinel cases, 40 small random cases and the "
+              f"{len(K5_EDGE_CASES)} edge cases")
         k5_launches = {ln["shape"]: ln["device_launches_per_call"]
                        for ln in k5_lines}
         print(f"K5 device launches per call: {k5_launches}; load mode "

@@ -9,9 +9,10 @@ round robin) for resource goals.
 The direct-assignment transport (``analyzer/direct.py``) places its movers
 by the same proportional fill, over the row-cumulative profiles its plan
 (KD3) already wrote: ``direct_fill_dests``, kernel KD4
-(``csrc/direct_fill.cu``, one thread a mover, the reference's binary
-search step for step) on the card and its twin ``fill_from_profiles`` on
-the CPU. The targeted column keeps the plain ``deficit_fill_dests``.
+(``csrc/direct_fill.cu``, the reference's binary search step for step,
+one thread a mover, each CTA over a contiguous range of the movers
+sorted by group so a group's rows stay in its SM's L1) on the card and
+its twin ``fill_from_profiles`` on the CPU. The targeted column keeps the plain ``deficit_fill_dests``.
 """
 
 from __future__ import annotations

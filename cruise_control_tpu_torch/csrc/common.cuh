@@ -37,32 +37,4 @@ __device__ __forceinline__ float key_value(unsigned long long k) {
   return unordered_float(static_cast<uint32_t>(k >> 32));
 }
 
-// Block-wide bitonic sort of n (a power of two) keys in shared memory,
-// descending. Every thread of the block must call it.
-__device__ __forceinline__ void bitonic_sort_desc(unsigned long long* s,
-                                                  int n) {
-  for (int k = 2; k <= n; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        int ixj = i ^ j;
-        if (ixj > i) {
-          unsigned long long a = s[i], b = s[ixj];
-          bool desc = (i & k) == 0;
-          if (desc ? (a < b) : (a > b)) {
-            s[i] = b;
-            s[ixj] = a;
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-__host__ __device__ __forceinline__ int next_pow2(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
 }  // namespace cc

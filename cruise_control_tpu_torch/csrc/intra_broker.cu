@@ -1,5 +1,5 @@
 // K5 intra_broker: the intra-broker disk balancer, each broker's loop run
-// to its own fixed point in one CTA; and, in load mode, the per-(broker,
+// to its own fixed point in one warp; and, in load mode, the per-(broker,
 // disk) DISK load.
 //
 // Replaces (JAX) cruise_control_tpu/model/disks.py:92 balance_intra_broker
@@ -12,7 +12,9 @@
 // disk once (~51 MB at 7,000 brokers / 1M partitions / RF 3); its
 // arithmetic is a few adds and compares a slot a round. The load mode
 // reads each slot's broker, disk and load and each partition's mask once
-// (~38 MB there) and writes [B, D] floats.
+// (~38 MB there) and writes [B, D] floats. What holds the balancer back
+// in practice is the chain of dependent rounds: at 7k/1M some 1,650
+// brokers run more than 8 of their 64 rounds.
 //
 // Why brokers run apart: a broker's round reads only its own slots, and a
 // broker that does not move keeps its state, so it never moves again. Each
@@ -20,35 +22,51 @@
 // point or to max_rounds, which is what the reference's global loop gives
 // it. Launches per call do not depend on the round count.
 //
-// Balancer design:
-//  group (4 nodes): per-broker replica counts (integer atomics), one CTA
-//  scans them into bases and the largest count, and every slot takes a
-//  position in its broker's list (integer atomics, any order);
-//  balance: one CTA per broker sorts its list back into flat slot order
-//  (bitonic, in shared memory), stages each slot's disk, load and movable
-//  flag, and runs the rounds: per-disk loads rebuilt each round by one
-//  thread per disk, serially in flat slot order with __fadd_rn (the
-//  reference's segment sum; never updated incrementally); shed pressure,
-//  every operation rounded alone with __fmul_rn / __fadd_rn: the
-//  reference's loop contracts no multiply-add here (XLA hoists
-//  cap * threshold out of it and shares avg * upper among a broker's
-//  disks), and nvcc would contract them by default; the
-//  first-index argmax and argmin over the disks; the heaviest movable
-//  replica on the source disk, lowest flat index first among equal loads,
-//  by a block reduction; the move. It records the first round in which the
-//  broker had no pick and why (no replica on its source disk, or all of
-//  them pinned).
-//  fixup (one CTA): the reference's sentinel collision. A broker without a
-//  pick writes its scatter row onto slot (P-1, 2147483647 % S) (no replica
-//  on the source disk) or (P-1, 0) (all pinned), putting back the slot's
-//  value from the start of the round; writes with equal indices land in
-//  broker order. So a broker above the slot's owner that has no pick in
-//  round r undoes the owner's move of that slot in round r, and, having
-//  no pick, it has none in every later round. For each sentinel slot's
-//  owner, highest index first, the CTA takes the first such round of the
-//  brokers above it and reruns the owner's loop from the input with the
-//  move of that slot frozen from that round on (the owner replays the
-//  undone move until max_rounds, changing nothing).
+// Balancer design (eight device ops a call, one host read):
+//  group: the load mode's pass 1 (count, scan, scatter below; the entries
+//  carry each slot's flat index) places the slots stably in buckets of
+//  2**k consecutive brokers, then split_kernel, one CTA a bucket, places
+//  each bucket's entries stably by broker: each broker's slots, in flat
+//  order, as one run, with its count and start and the largest count (no
+//  sort of a broker's list; no atomic whose order shows in the result).
+//  The host reads the largest count, which sizes each warp's shared
+//  memory and must not pass 8,192.
+//  balance: one warp a broker (a CTA of 32 threads, so many brokers share
+//  an SM) stages its run: each slot's load, disk and movable flag. Each
+//  disk's load is the sequential fold with __fadd_rn of its slots' loads
+//  in flat slot order (the reference's segment sum); the warp keeps, for
+//  every slot, its disk's fold over the slots before it (lane d folds disk
+//  d once at the start). A move changes only two disks, and a sequential
+//  fold keeps its bits up to the first position that changes, so a round
+//  refolds the source from the moved slot's prefix and the destination
+//  from its prefix at the moved slot, each over its own slots after it
+//  only: the warp gathers both disks' later loads into two lists (128
+//  slots a step by ballots), one lane folds them in place, the two chains
+//  of adds interleaved and the next loads in flight, and the warp writes
+//  the prefixes back. Each slot's pick key (the order of its load when movable, 0
+//  when pinned) is made once, so a round's pick reads four slots a lane a
+//  step with two vector loads. Shed pressure,
+//  one lane a disk, each disk's load in its lane's register, every
+//  operation rounded alone with __fmul_rn / __fadd_rn: the reference's
+//  loop contracts no multiply-add here (XLA hoists cap * threshold out of
+//  it and shares avg * upper among a broker's disks), and nvcc would
+//  contract them by default; the mean's sum runs in disk order; the
+//  first-index argmax and argmin over the disks by warp reductions on
+//  order-preserving keys. The heaviest movable replica on the source
+//  disk, lowest flat index first among equal loads, by a warp reduction;
+//  the move. It records the first round in which the broker had no pick
+//  and why (no replica on its source disk, or all of them pinned).
+//  fixup (one warp): the reference's sentinel collision. A broker without
+//  a pick writes its scatter row onto slot (P-1, 2147483647 % S) (no
+//  replica on the source disk) or (P-1, 0) (all pinned), putting back the
+//  slot's value from the start of the round; writes with equal indices
+//  land in broker order. So a broker above the slot's owner that has no
+//  pick in round r undoes the owner's move of that slot in round r, and,
+//  having no pick, it has none in every later round. For each sentinel
+//  slot's owner, highest index first, the warp takes the first such round
+//  of the brokers above it and reruns the owner's loop from the input
+//  with the move of that slot frozen from that round on (the owner
+//  replays the undone move until max_rounds, changing nothing).
 //
 // Load mode design (cc_intra_broker_load): the slots are moved into broker
 // order, stably, in two passes whose writes are coalesced, then each
@@ -88,459 +106,18 @@
 
 namespace {
 
-// Both kernels that run a broker's loop use kThreads threads: the loop's
-// block reduction keeps one partial per warp (BrokerShared::red_*).
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxDisks = 32;
 constexpr int kMaxReplicas = 8192;
 constexpr int kNever = 0x7fffffff;
 constexpr int kNoPickPinned = 1;
 constexpr int kNoPickEmpty = 2;
-
-struct Inputs {
-  const int* assignment;
-  const uint8_t* pmask;
-  const float* load;
-  const uint8_t* movable;
-  const int* disk_in;
-  const float* cap;
-  const uint8_t* alive;
-  int P, S, B, D;
-  float threshold, upper;
-  int band, max_rounds;
-};
-
-struct Scratch {  // int32 words, see cc_intra_broker_scratch_words
-  int* count;     // [B]
-  int* base;      // [B]
-  int* cursor;    // [B]
-  int* most;      // [1] (+3 pad)
-  int* list;      // [P*S]
-  int* nopick_round;  // [B]
-  int* nopick_kind;   // [B]
-  int* rounds;        // [B] rounds each broker ran (its last one included)
-};
-
-__host__ __device__ inline Scratch scratch_of(int* w, long long n, int B) {
-  Scratch s;
-  s.count = w;
-  s.base = w + B;
-  s.cursor = w + 2LL * B;
-  s.most = w + 3LL * B;
-  s.list = w + 3LL * B + 4;
-  s.nopick_round = s.list + n;
-  s.nopick_kind = s.nopick_round + B;
-  s.rounds = s.nopick_kind + B;
-  return s;
-}
+constexpr unsigned kAll = 0xffffffffu;
 
 __device__ __forceinline__ int slot_broker(const int* __restrict__ assignment,
                                            const uint8_t* __restrict__ pmask,
                                            int i, int S, int B) {
   const int b = assignment[i];
   return (b >= 0 && b < B && pmask[i / S]) ? b : -1;
-}
-
-__global__ void count_kernel(const int* __restrict__ assignment,
-                             const uint8_t* __restrict__ pmask, int n, int S,
-                             int B, int* __restrict__ count) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const int b = slot_broker(assignment, pmask, i, S, B);
-    if (b >= 0) atomicAdd(&count[b], 1);
-  }
-}
-
-// One CTA: exclusive scan of the counts into bases (and cursors), and the
-// largest count.
-__global__ void scan_kernel(int B, const int* __restrict__ count,
-                            int* __restrict__ base, int* __restrict__ cursor,
-                            int* __restrict__ most) {
-  __shared__ int warp_sums[32];
-  __shared__ int warp_max[32];
-  __shared__ int carry, top;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) {
-    carry = 0;
-    top = 0;
-  }
-  __syncthreads();
-  for (int chunk = 0; chunk < B; chunk += blockDim.x) {
-    const int b = chunk + threadIdx.x;
-    const int v = b < B ? count[b] : 0;
-    int x = v, m = v;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, d);
-      if (lane >= d) x += y;
-      m = max(m, __shfl_xor_sync(0xffffffffu, m, d));
-    }
-    if (lane == 31) warp_sums[warp] = x;
-    if (lane == 0) warp_max[warp] = m;
-    __syncthreads();
-    if (warp == 0) {
-      const int nw = blockDim.x >> 5;
-      int w = lane < nw ? warp_sums[lane] : 0;
-      int mm = lane < nw ? warp_max[lane] : 0;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, d);
-        if (lane >= d) w += y;
-        mm = max(mm, __shfl_xor_sync(0xffffffffu, mm, d));
-      }
-      warp_sums[lane] = w;
-      if (lane == 0) top = max(top, mm);
-    }
-    __syncthreads();
-    const int before = carry + (warp > 0 ? warp_sums[warp - 1] : 0);
-    if (b < B) {
-      base[b] = before + x - v;
-      cursor[b] = before + x - v;
-    }
-    __syncthreads();
-    if (threadIdx.x == blockDim.x - 1) carry = before + x;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *most = top;
-}
-
-__global__ void scatter_kernel(const int* __restrict__ assignment,
-                               const uint8_t* __restrict__ pmask, int n, int S,
-                               int B, int* __restrict__ cursor,
-                               int* __restrict__ list) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    const int b = slot_broker(assignment, pmask, i, S, B);
-    if (b >= 0) list[atomicAdd(&cursor[b], 1)] = i;
-  }
-}
-
-// One broker's staged slots in shared memory, in flat slot order.
-struct Staged {
-  unsigned long long* keys;  // [cap2] sort space
-  int* idx;                  // flat slot
-  float* ld;                 // DISK load
-  int8_t* dsk;               // disk slot, -1 none
-  uint8_t* mov;              // movable
-  int n;
-};
-
-__device__ __forceinline__ Staged staged_layout(unsigned char* smem, int cap2) {
-  Staged st;
-  st.keys = reinterpret_cast<unsigned long long*>(smem);
-  st.idx = reinterpret_cast<int*>(st.keys + cap2);
-  st.ld = reinterpret_cast<float*>(st.idx + cap2);
-  st.dsk = reinterpret_cast<int8_t*>(st.ld + cap2);
-  st.mov = reinterpret_cast<uint8_t*>(st.dsk + cap2);
-  st.n = 0;
-  return st;
-}
-
-// Every thread of the block must call it. The sort covers the broker's
-// own count rounded up to a power of two, not the largest broker's.
-__device__ void stage_broker(const Inputs& in, const Scratch& sc, int b,
-                             Staged& st) {
-  const int n = sc.count[b];
-  const int n2 = cc::next_pow2(n > 0 ? n : 1);
-  const int* lst = sc.list + sc.base[b];
-  for (int t = threadIdx.x; t < n2; t += blockDim.x)
-    st.keys[t] = t < n ? static_cast<unsigned long long>(lst[t]) + 1ull : 0ull;
-  __syncthreads();
-  cc::bitonic_sort_desc(st.keys, n2);
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const int i = static_cast<int>(st.keys[n - 1 - t] - 1ull);
-    st.idx[t] = i;
-    st.ld[t] = in.load[i];
-    st.dsk[t] = static_cast<int8_t>(in.disk_in[i]);
-    st.mov[t] = in.movable[i / in.S];
-  }
-  st.n = n;
-  __syncthreads();
-}
-
-struct Block {  // a sentinel slot whose move is undone from `round` on
-  long long flat;
-  int round;
-};
-
-struct BrokerShared {
-  float load[kMaxDisks];
-  int src, dst, ok, stop, pick_j, any_on;
-  float red_ld[kWarps];
-  int red_j[kWarps], red_any[kWarps];
-};
-
-// Per-disk loads of the staged broker, one thread per disk, serially in
-// flat slot order.
-__device__ __forceinline__ void disk_loads(const Staged& st, int D,
-                                           BrokerShared& sh) {
-  if (threadIdx.x < D) {
-    const int8_t d = static_cast<int8_t>(threadIdx.x);
-    float acc = 0.0f;
-    for (int j = 0; j < st.n; ++j)
-      if (st.dsk[j] == d) acc = __fadd_rn(acc, st.ld[j]);
-    sh.load[threadIdx.x] = acc;
-  }
-}
-
-// The broker's loop (every thread of the block calls it). Leaves the
-// final disks in st.dsk and the final loads in sh.load; returns through
-// (nopick_round, nopick_kind) the first round without a pick, and through
-// rounds_run the rounds it ran.
-__device__ void run_broker(const Inputs& in, int b, Staged& st,
-                           BrokerShared& sh, Block blk0, Block blk1,
-                           int* nopick_round, int* nopick_kind,
-                           int* rounds_run) {
-  const int D = in.D;
-  const float* cap = in.cap + static_cast<long long>(b) * D;
-  const uint8_t* alive = in.alive + static_cast<long long>(b) * D;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int np_round = kNever, np_kind = 0;
-  int r = 0;
-  for (; r < in.max_rounds; ++r) {
-    disk_loads(st, D, sh);
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      // Shed pressure; util and the mean over alive disks.
-      float v[kMaxDisks], util[kMaxDisks];
-      float total = 0.0f;
-      int n_alive = 0;
-      for (int d = 0; d < D; ++d) {
-        const float c = cap[d], l = sh.load[d];
-        const bool present = c > 0.0f;
-        const bool dead = present && !alive[d];
-        const float over = fmaxf(__fsub_rn(l, __fmul_rn(c, in.threshold)),
-                                 0.0f);
-        v[d] = __fadd_rn(present ? over : 0.0f, dead ? l : 0.0f);
-        util[d] = present ? __fdiv_rn(l, fmaxf(c, 1e-9f)) : 0.0f;
-        const bool al = present && alive[d];
-        total = __fadd_rn(total, __fmul_rn(util[d], al ? 1.0f : 0.0f));
-        n_alive += al;
-      }
-      if (in.band) {
-        const float avg = __fdiv_rn(total, static_cast<float>(max(n_alive, 1)));
-        const float bar = __fmul_rn(avg, in.upper);
-        for (int d = 0; d < D; ++d) {
-          const bool al = cap[d] > 0.0f && alive[d];
-          const float above = fmaxf(__fsub_rn(util[d], bar), 0.0f);
-          v[d] = __fadd_rn(v[d], al ? __fmul_rn(above, cap[d]) : 0.0f);
-        }
-      }
-      // First index of the largest pressure and of the lowest alive
-      // utilization (every disk dead: disk 0, never a valid destination).
-      int src = 0, dst = 0;
-      float best_v = v[0];
-      for (int d = 1; d < D; ++d)
-        if (v[d] > best_v) {
-          best_v = v[d];
-          src = d;
-        }
-      float best_u = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const bool al = cap[d] > 0.0f && alive[d];
-        const float u = al ? __fdiv_rn(sh.load[d], fmaxf(cap[d], 1e-9f))
-                           : __uint_as_float(0x7f800000u);
-        if (d == 0 || u < best_u) {
-          best_u = u;
-          dst = d;
-        }
-      }
-      const bool dst_alive = cap[dst] > 0.0f && alive[dst];
-      sh.src = src;
-      sh.dst = dst;
-      sh.ok = (best_v > 1e-9f) && dst_alive && dst != src;
-    }
-    __syncthreads();
-    // The heaviest movable replica on the source disk, lowest flat index
-    // first; and whether any replica sits there.
-    const int8_t src = static_cast<int8_t>(sh.src);
-    float bl = cc::neg_inf();
-    int bj = -1, any = 0;
-    for (int j = threadIdx.x; j < st.n; j += blockDim.x) {
-      if (st.dsk[j] != src) continue;
-      any = 1;
-      if (st.mov[j] && (bj < 0 || st.ld[j] > bl)) {
-        bl = st.ld[j];
-        bj = j;
-      }
-    }
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1) {
-      const float ol = __shfl_xor_sync(0xffffffffu, bl, d);
-      const int oj = __shfl_xor_sync(0xffffffffu, bj, d);
-      any |= __shfl_xor_sync(0xffffffffu, any, d);
-      if (oj >= 0 && (bj < 0 || ol > bl || (ol == bl && oj < bj))) {
-        bl = ol;
-        bj = oj;
-      }
-    }
-    if (lane == 0) {
-      sh.red_ld[warp] = bl;
-      sh.red_j[warp] = bj;
-      sh.red_any[warp] = any;
-    }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float l = sh.red_ld[0];
-      int j = sh.red_j[0], a = sh.red_any[0];
-      for (int w = 1; w < kWarps; ++w) {
-        a |= sh.red_any[w];
-        const int oj = sh.red_j[w];
-        const float ol = sh.red_ld[w];
-        if (oj >= 0 && (j < 0 || ol > l || (ol == l && oj < j))) {
-          l = ol;
-          j = oj;
-        }
-      }
-      // The reference's pick needs a score >= 0 (a pinned slot scores -1).
-      if (j >= 0 && !(l >= 0.0f)) j = -1;
-      int stop = 0;
-      if (!a) {
-        np_round = r;
-        np_kind = kNoPickEmpty;
-        stop = 1;
-      } else if (j < 0) {
-        np_round = r;
-        np_kind = kNoPickPinned;
-        stop = 1;
-      } else if (!sh.ok) {
-        stop = 1;
-      } else {
-        const long long flat = st.idx[j];
-        if ((flat == blk0.flat && r >= blk0.round) ||
-            (flat == blk1.flat && r >= blk1.round)) {
-          stop = 1;  // undone every round from here on
-        } else {
-          st.dsk[j] = static_cast<int8_t>(sh.dst);
-        }
-      }
-      sh.stop = stop;
-    }
-    __syncthreads();
-    if (sh.stop) {
-      ++r;
-      break;
-    }
-  }
-  disk_loads(st, D, sh);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    *nopick_round = np_round;
-    *nopick_kind = np_kind;
-    *rounds_run = r;
-  }
-}
-
-__device__ void write_back(const Inputs& in, int b, const Staged& st,
-                           const BrokerShared& sh, int* out_disk,
-                           float* out_load) {
-  for (int t = threadIdx.x; t < st.n; t += blockDim.x)
-    out_disk[st.idx[t]] = st.dsk[t];
-  if (threadIdx.x < in.D)
-    out_load[static_cast<long long>(b) * in.D + threadIdx.x] =
-        sh.load[threadIdx.x];
-}
-
-__global__ void __launch_bounds__(kThreads) balance_kernel(
-    Inputs in, Scratch sc, int cap2, int* __restrict__ out_disk,
-    float* __restrict__ out_load) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ BrokerShared sh;
-  __shared__ int np_round, np_kind, ran;
-  const int b = blockIdx.x;
-  Staged st = staged_layout(smem, cap2);
-  stage_broker(in, sc, b, st);
-  const Block none{-1, kNever};
-  run_broker(in, b, st, sh, none, none, &np_round, &np_kind, &ran);
-  write_back(in, b, st, sh, out_disk, out_load);
-  if (threadIdx.x == 0) {
-    sc.nopick_round[b] = np_round;
-    sc.nopick_kind[b] = np_kind;
-    sc.rounds[b] = ran;
-  }
-}
-
-// The first no-pick round, over brokers above `owner`, of a kind whose
-// sentinel slot is `flat`.
-__device__ int first_block_round(const Inputs& in, const Scratch& sc,
-                                 int owner, long long flat, long long flat_pin,
-                                 long long flat_empty, int* red) {
-  int m = kNever;
-  for (int b = owner + 1 + threadIdx.x; b < in.B; b += blockDim.x) {
-    const int k = sc.nopick_kind[b];
-    const long long f = k == kNoPickPinned ? flat_pin
-                        : k == kNoPickEmpty ? flat_empty : -1;
-    if (f == flat) m = min(m, sc.nopick_round[b]);
-  }
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1)
-    m = min(m, __shfl_xor_sync(0xffffffffu, m, d));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w)
-      m = min(m, red[w]);
-    red[0] = m;
-  }
-  __syncthreads();
-  m = red[0];
-  __syncthreads();
-  return m;
-}
-
-__global__ void __launch_bounds__(kThreads) fixup_kernel(
-    Inputs in, Scratch sc, int cap2, int* __restrict__ out_disk,
-    float* __restrict__ out_load) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ BrokerShared sh;
-  __shared__ int red[32];
-  __shared__ int np_round, np_kind, ran;
-  const long long last = static_cast<long long>(in.P - 1) * in.S;
-  const long long flat_pin = last;
-  const long long flat_empty = last + 0x7fffffff % in.S;
-  int owner[2];
-  const long long flats[2] = {flat_pin, flat_empty};
-  for (int k = 0; k < 2; ++k) {
-    const long long f = flats[k];
-    const int a = in.assignment[f];
-    owner[k] = (a >= 0 && a < in.B && in.pmask[in.P - 1] && in.disk_in[f] >= 0)
-                   ? a : -1;
-  }
-  // Owners from the highest index down: a lower owner's block round reads
-  // the higher owner's corrected no-pick round.
-  int order[2] = {0, 1};
-  if (owner[1] > owner[0]) {
-    order[0] = 1;
-    order[1] = 0;
-  }
-  for (int q = 0; q < 2; ++q) {
-    const int o = owner[order[q]];
-    if (o < 0) continue;
-    if (q == 1 && o == owner[order[0]]) break;  // one owner of both slots
-    Block blk[2] = {{-1, kNever}, {-1, kNever}};
-    bool any = false;
-    for (int k = 0; k < 2; ++k) {
-      if (owner[k] != o || (k == 1 && flats[1] == flats[0])) continue;
-      const int r = first_block_round(in, sc, o, flats[k], flat_pin,
-                                      flat_empty, red);
-      if (r != kNever) {
-        blk[k] = Block{flats[k], r};
-        any = true;
-      }
-    }
-    if (!any) continue;
-    Staged st = staged_layout(smem, cap2);
-    stage_broker(in, sc, o, st);
-    run_broker(in, o, st, sh, blk[0], blk[1], &np_round, &np_kind, &ran);
-    write_back(in, o, st, sh, out_disk, out_load);
-    if (threadIdx.x == 0) {
-      sc.nopick_round[o] = np_round;
-      sc.nopick_kind[o] = np_kind;
-      sc.rounds[o] = ran;
-    }
-    __syncthreads();
-  }
 }
 
 // ---- load mode ----------------------------------------------------------
@@ -589,13 +166,16 @@ inline LoadScratch load_scratch_of(int* w, long long n, int B) {
   return s;
 }
 
-__device__ __forceinline__ unsigned long long load_entry(int b, float load,
+// An entry: (broker << 6) | (disk + 1, 0 for none or a slot >= D) in the
+// high word, the slot's DISK load's bits (load mode) or its flat index
+// (balancer) in the low word.
+__device__ __forceinline__ unsigned long long slot_entry(int b, uint32_t low,
                                                          int disk, int D) {
   const uint32_t d = disk >= 0 && disk < D ? disk + 1 : 0;
   return (static_cast<unsigned long long>((static_cast<uint32_t>(b) << 6) |
                                           d)
           << 32) |
-         __float_as_uint(load);
+         low;
 }
 
 __device__ __forceinline__ int entry_broker(unsigned long long e) {
@@ -717,7 +297,9 @@ __global__ void __launch_bounds__(kLoadThreads) load_scan_kernel(
 // memory (chunks of kLoadThreads slots, each ranked by rank_in_chunk and
 // appended to its bucket's run; the next chunk's slots load meanwhile),
 // then written out coalesced: the bucket's run of this tile starts at its
-// base plus the tile's entry of the table.
+// base plus the tile's entry of the table. kIndex: the entries carry the
+// slot's flat index (the balancer's grouping) instead of its load.
+template <bool kIndex>
 __global__ void __launch_bounds__(kLoadThreads) load_scatter_kernel(
     const int* __restrict__ assignment, const uint8_t* __restrict__ pmask,
     const float* __restrict__ load, const int* __restrict__ disk, int n,
@@ -753,15 +335,17 @@ __global__ void __launch_bounds__(kLoadThreads) load_scatter_kernel(
   // This thread's next slot: its broker, load and disk.
   int i = lo + t;
   int b = i < hi ? slot_broker(assignment, pmask, i, S, B) : -1;
-  float ld = b >= 0 ? load[i] : 0.0f;
+  uint32_t low = b < 0 ? 0u : kIndex ? static_cast<uint32_t>(i)
+                                     : __float_as_uint(load[i]);
   int dk = b >= 0 ? disk[i] : -1;
   __syncthreads();
   for (int c0 = lo; c0 < hi; c0 += kLoadThreads) {
-    const unsigned long long e = b >= 0 ? load_entry(b, ld, dk, D) : 0ull;
+    const unsigned long long e = b >= 0 ? slot_entry(b, low, dk, D) : 0ull;
     const int key = b >= 0 ? b >> shift : -1;
     i += kLoadThreads;
     b = i < hi ? slot_broker(assignment, pmask, i, S, B) : -1;
-    ld = b >= 0 ? load[i] : 0.0f;
+    low = b < 0 ? 0u : kIndex ? static_cast<uint32_t>(i)
+                              : __float_as_uint(load[i]);
     dk = b >= 0 ? disk[i] : -1;
     const Rank r = rank_in_chunk(key, head, link);
     if (key >= 0 && r.rank == 0) {
@@ -971,47 +555,795 @@ inline size_t fold_smem(int shift) {
          sizeof(int) * 3 * wide;
 }
 
-inline int grid_of(long long n) {
-  const long long want = (n + 255) / 256;
-  return static_cast<int>(want < 2112 ? (want > 0 ? want : 1) : 2112);
+// ---- balancer -------------------------------------------------------------
+
+struct Inputs {
+  const int* assignment;
+  const uint8_t* pmask;
+  const float* load;
+  const uint8_t* movable;
+  const int* disk_in;
+  const float* cap;
+  const uint8_t* alive;
+  int P, S, B, D;
+  float threshold, upper;
+  int band, max_rounds;
+};
+
+// The balancer's scratch, in int32 words (cc_intra_broker_scratch_words):
+// each broker's count and its run's start [B] each, the largest count (4
+// words), pass 1's entries and the split's runs (8 bytes a slot each),
+// pass 1's table and totals, and last each broker's first no-pick round
+// and its kind and the rounds it ran [B] each.
+struct Scratch {
+  int* count;
+  int* start;
+  int* most;
+  unsigned long long* entry;
+  unsigned long long* run;
+  int* table;
+  int* total;
+  int* nopick_round;
+  int* nopick_kind;
+  int* rounds;
+};
+
+inline long long entries_at(int B) { return (2LL * B + 4 + 1) & ~1LL; }
+
+inline long long scratch_words(long long n, int B) {
+  const LoadPlan pl = load_plan(n, B);
+  return entries_at(B) + 4 * n +
+         (static_cast<long long>(pl.tiles) + 1) * pl.buckets + 3LL * B;
 }
 
-inline size_t smem_of(int cap2) {
-  return static_cast<size_t>(cap2) * (8 + 4 + 4 + 1 + 1);
+inline Scratch scratch_of(int* w, long long n, int B) {
+  const LoadPlan pl = load_plan(n, B);
+  Scratch s;
+  s.count = w;
+  s.start = w + B;
+  s.most = w + 2LL * B;
+  s.entry = reinterpret_cast<unsigned long long*>(w + entries_at(B));
+  s.run = s.entry + n;
+  s.table = reinterpret_cast<int*>(s.run + n);
+  s.total = s.table + static_cast<long long>(pl.tiles) * pl.buckets;
+  s.nopick_round = s.total + pl.buckets;
+  s.nopick_kind = s.nopick_round + B;
+  s.rounds = s.nopick_kind + B;
+  return s;
+}
+
+constexpr int kSplitWarps = kLoadThreads / 32;
+
+// Exclusive scan of v over the CTA's kLoadThreads threads, the total in
+// *all; every thread of the CTA calls it. `sums` holds a value a warp.
+__device__ __forceinline__ int block_scan(int v, int* sums, int* all) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kAll, x, d);
+    if (lane >= d) x += y;
+  }
+  if (lane == 31) sums[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int s = sums[lane];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(kAll, s, d);
+      if (lane >= d) s += y;
+    }
+    sums[lane] = s;
+  }
+  __syncthreads();
+  const int before = w > 0 ? sums[w - 1] : 0;
+  *all = sums[kSplitWarps - 1];
+  __syncthreads();
+  return before + x - v;
+}
+
+// One CTA a bucket of pass 1 (its slots' entries in flat order): each
+// broker's count, its run's start and the largest count, then the entries
+// placed stably by broker into `run`, each broker's slots one run in flat
+// order. Up to 32 brokers a bucket (B <= 8,192) each chunk's entries are
+// ranked by ballots on the broker's five bits and each warp's counts,
+// scanned over the warps a broker; above, by rank_in_chunk's lists.
+__global__ void __launch_bounds__(kLoadThreads) split_kernel(
+    int B, int shift, int buckets, const int* __restrict__ total,
+    const unsigned long long* __restrict__ entry,
+    unsigned long long* __restrict__ run, int* __restrict__ count,
+    int* __restrict__ start, int* __restrict__ most) {
+  extern __shared__ int split_smem[];  // cnt, cursor, head: [wide] each
+  __shared__ int link[kLoadThreads], taken[kLoadThreads];
+  __shared__ int wcnt[kSplitWarps][33];
+  __shared__ int sums[kSplitWarps], bucket_base, top;
+  const int width = 1 << shift, wide = width > 32 ? width : 32;
+  int* cnt = split_smem;
+  int* cursor = cnt + wide;
+  int* head = cursor + wide;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int k = blockIdx.x;
+  const int b0 = k << shift, brokers = min(width, B - b0);
+  for (int j = t; j < wide; j += kLoadThreads) {
+    cnt[j] = 0;
+    head[j] = -1;
+  }
+  const int before = scan_buckets(t < buckets ? total[t] : 0, sums);
+  if (t == k) bucket_base = before;
+  if (t == 0) top = 0;
+  __syncthreads();
+  const unsigned long long* in = entry + bucket_base;
+  unsigned long long* out = run + bucket_base;
+  const int m = total[k];
+  for (int j = t; j < m; j += kLoadThreads)
+    atomicAdd(&cnt[entry_broker(in[j]) - b0], 1);
+  __syncthreads();
+  // Each broker's run: an exclusive scan of the counts in broker order.
+  int carry = 0, biggest = 0;
+  for (int c0 = 0; c0 < width; c0 += kLoadThreads) {
+    const int q = c0 + t;
+    const int v = q < brokers ? cnt[q] : 0;
+    int all;
+    const int at = carry + block_scan(v, sums, &all);
+    if (q < brokers) {
+      cursor[q] = at;
+      count[b0 + q] = v;
+      start[b0 + q] = bucket_base + at;
+      biggest = max(biggest, v);
+    }
+    carry += all;
+  }
+  biggest = __reduce_max_sync(kAll, biggest);
+  if (lane == 0) atomicMax(&top, biggest);
+  __syncthreads();
+  if (t == 0) atomicMax(most, top);
+  if (shift <= 5) {
+    for (int c0 = 0; c0 < m; c0 += kLoadThreads) {
+      const int j = c0 + t;
+      const unsigned long long e = j < m ? in[j] : 0ull;
+      const int key = j < m ? entry_broker(e) - b0 : -1;
+      const unsigned peers = key_peers(key, 5);
+      const int rank = __popc(peers & below);
+      wcnt[warp][lane] = 0;
+      __syncwarp();
+      if (key >= 0 && rank == 0) wcnt[warp][key] = __popc(peers);
+      __syncthreads();
+      // Warp q for broker q: each warp's offset among the chunk's slots of
+      // broker q, and their total.
+      int x = wcnt[lane][warp];
+      const int own = x;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int y = __shfl_up_sync(kAll, x, d);
+        if (lane >= d) x += y;
+      }
+      wcnt[lane][warp] = x - own;
+      const int chunk_total = __shfl_sync(kAll, x, 31);
+      __syncthreads();
+      if (key >= 0) out[cursor[key] + wcnt[warp][key] + rank] = e;
+      __syncthreads();
+      if (lane == 0 && warp < brokers) cursor[warp] += chunk_total;
+    }
+  } else {
+    for (int c0 = 0; c0 < m; c0 += kLoadThreads) {
+      const int j = c0 + t;
+      const unsigned long long e = j < m ? in[j] : 0ull;
+      const int key = j < m ? entry_broker(e) - b0 : -1;
+      const Rank r = rank_in_chunk(key, head, link);
+      if (key >= 0 && r.rank == 0) {
+        taken[t] = cursor[key];
+        cursor[key] += r.count;
+      }
+      __syncthreads();
+      if (key >= 0) out[taken[r.first] + r.rank] = e;
+      __syncthreads();
+    }
+  }
+}
+
+// Dynamic shared memory of the split: three [wide] int arrays.
+inline size_t split_smem_bytes(int shift) {
+  const size_t wide = shift > 5 ? size_t{1} << shift : 32;
+  return sizeof(int) * 3 * wide;
+}
+
+// One broker staged in one warp's shared memory, in flat slot order.
+struct Staged {
+  const unsigned long long* run;  // its entries (low word: the flat index)
+  float* ld;                      // DISK load
+  float* pre;                     // its disk's fold over the slots before it
+  float* ls;                      // the source's loads after the moved slot
+  float* lt;                      // the destination's
+  uint32_t* pkey;                 // pick key: movable ? load's order : 0
+  int8_t* dsk;                    // disk slot, -1 none (and past n)
+  int n;
+};
+
+// A warp's shared memory for `cap` slots (a multiple of 8): load, prefix,
+// the two lists, pick key and disk.
+inline size_t slice_bytes(int cap) {
+  return static_cast<size_t>(cap) * (4 + 4 + 4 + 4 + 4 + 1);
+}
+
+__device__ __forceinline__ Staged staged_layout(unsigned char* smem,
+                                                int cap) {
+  Staged st;
+  st.run = nullptr;
+  st.ld = reinterpret_cast<float*>(smem);
+  st.pre = st.ld + cap;
+  st.ls = st.pre + cap;
+  st.lt = st.ls + cap;
+  st.pkey = reinterpret_cast<uint32_t*>(st.lt + cap);
+  st.dsk = reinterpret_cast<int8_t*>(st.pkey + cap);
+  st.n = 0;
+  return st;
+}
+
+__device__ __forceinline__ int flat_of(const Staged& st, int t) {
+  return static_cast<int>(static_cast<uint32_t>(st.run[t]));
+}
+
+// The warp stages broker b's run: each slot's disk (-1 for none or one
+// >= D, and for the padding up to a multiple of 4), load and pick key
+// (the order of its load, signed zeros made equal, when it is movable; 0,
+// below every load's, when it is pinned).
+__device__ void stage_broker(const Inputs& in, const Scratch& sc, int b,
+                             Staged& st) {
+  const int lane = threadIdx.x & 31;
+  st.n = sc.count[b];
+  st.run = sc.run + sc.start[b];
+  const int padded = (st.n + 3) & ~3;
+#pragma unroll 4
+  for (int t = lane; t < padded; t += 32) {
+    if (t >= st.n) {
+      st.dsk[t] = -1;
+      st.pkey[t] = 0u;
+      continue;
+    }
+    const unsigned long long e = st.run[t];
+    const int i = static_cast<int>(static_cast<uint32_t>(e));
+    const float x = in.load[i];
+    st.dsk[t] = static_cast<int8_t>(static_cast<int>((e >> 32) & 63u) - 1);
+    st.ld[t] = x;
+    st.pkey[t] = in.movable[i / in.S] ? cc::ordered_bits(__fadd_rn(x, 0.0f))
+                                      : 0u;
+  }
+  __syncwarp();
+}
+
+// Lane d: disk d's fold over the staged slots in flat order, each of its
+// slots' prefix written (every lane reads each slot: a broadcast).
+__device__ __forceinline__ float fold_all(const Staged& st) {
+  const int lane = threadIdx.x & 31;
+  const int8_t* __restrict__ dsk = st.dsk;
+  const float* __restrict__ ld = st.ld;
+  float* __restrict__ pre = st.pre;
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int j = 0; j < st.n; ++j) {
+    const int d = dsk[j];
+    const float x = ld[j];
+    if (d == lane) {
+      pre[j] = acc;
+      acc = __fadd_rn(acc, x);
+    }
+  }
+  __syncwarp();
+  return acc;
+}
+
+// Lane d < D: disk d's capacity and state.
+struct DiskLane {
+  float cap;
+  bool present, alive, dead;
+};
+
+struct Disks {
+  int src, dst;
+  bool ok;
+};
+
+// Every lane: the round's source disk (first index of the largest shed
+// pressure) and destination (first index of the lowest alive
+// utilization; every disk dead: disk 0, never a valid destination), from
+// lane d's load of disk d. Every operation rounded alone; the mean's sum
+// in disk order; the first indices by warp reductions on
+// order-preserving keys (signed zeros made equal; lanes >= D below all).
+__device__ __forceinline__ Disks pick_disks(const Inputs& in,
+                                            const DiskLane& dl, float l) {
+  const int lane = threadIdx.x & 31;
+  const bool real = lane < in.D;
+  const float c = dl.cap;
+  const float over = fmaxf(__fsub_rn(l, __fmul_rn(c, in.threshold)), 0.0f);
+  float v = __fadd_rn(dl.present ? over : 0.0f, dl.dead ? l : 0.0f);
+  const float util = dl.present ? __fdiv_rn(l, fmaxf(c, 1e-9f)) : 0.0f;
+  if (in.band) {
+    const float w = __fmul_rn(util, dl.alive ? 1.0f : 0.0f);
+    float total = 0.0f;
+    for (int d = 0; d < in.D; ++d)
+      total = __fadd_rn(total, __shfl_sync(kAll, w, d));
+    const int n_alive = __popc(__ballot_sync(kAll, dl.alive));
+    const float avg = __fdiv_rn(total, static_cast<float>(max(n_alive, 1)));
+    const float bar = __fmul_rn(avg, in.upper);
+    const float above = fmaxf(__fsub_rn(util, bar), 0.0f);
+    v = __fadd_rn(v, dl.alive ? __fmul_rn(above, c) : 0.0f);
+  }
+  const uint32_t kv = real ? cc::ordered_bits(__fadd_rn(v, 0.0f)) : 0u;
+  const uint32_t ku =
+      real ? ~cc::ordered_bits(dl.alive ? __fadd_rn(util, 0.0f)
+                                        : __uint_as_float(0x7f800000u))
+           : 0u;
+  const uint32_t top_v = __reduce_max_sync(kAll, kv);
+  const uint32_t top_u = __reduce_max_sync(kAll, ku);
+  Disks r;
+  r.src = __ffs(__ballot_sync(kAll, kv == top_v)) - 1;
+  r.dst = __ffs(__ballot_sync(kAll, ku == top_u)) - 1;
+  const float best_v = __shfl_sync(kAll, v, r.src);
+  const int dst_alive = __shfl_sync(kAll, dl.alive ? 1 : 0, r.dst);
+  r.ok = (best_v > 1e-9f) && dst_alive && r.dst != r.src;
+  return r;
+}
+
+struct Pick {
+  int j;     // staged position, -1 for none
+  bool any;  // a slot sits on the source disk
+};
+
+// Every lane: the heaviest movable slot on disk `src`, lowest flat index
+// first among equal loads (-1 for none, or when its load is not >= 0: the
+// reference's pick scores a pinned slot -1), and whether any slot sits
+// there. Lane l reads slots 4l..4l+3 of each 128 (their keys as one
+// 16-byte load, their disks as one word), in flat order.
+__device__ __forceinline__ Pick pick_slot(const Staged& st, int src) {
+  const int lane = threadIdx.x & 31;
+  uint32_t best = 0u;
+  uint32_t bj = 0xffffffffu;
+  int any = 0;
+  for (int base = 4 * lane; base < st.n; base += 128) {
+    const uint4 k4 = *reinterpret_cast<const uint4*>(st.pkey + base);
+    const uint32_t d4 = *reinterpret_cast<const uint32_t*>(st.dsk + base);
+    const uint32_t key[4] = {k4.x, k4.y, k4.z, k4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      if (static_cast<int>(static_cast<int8_t>(d4 >> (8 * u))) != src)
+        continue;
+      any = 1;
+      if (key[u] > best) {
+        best = key[u];
+        bj = static_cast<uint32_t>(base + u);
+      }
+    }
+  }
+  Pick p;
+  p.any = __any_sync(kAll, any) != 0;
+  const uint32_t top = __reduce_max_sync(kAll, best);
+  const uint32_t j = __reduce_min_sync(kAll, best == top ? bj : 0xffffffffu);
+  p.j = top == 0u || !(cc::unordered_float(top) >= 0.0f)
+            ? -1 : static_cast<int>(j);
+  return p;
+}
+
+// Every lane: the loads of the slots after `from` on disk s and on disk d,
+// in flat order, gathered into st.ls and st.lt; their counts. Each step
+// takes 128 slots: their disks and ballots first, then the places.
+struct Lists {
+  int cs, cd;
+};
+
+__device__ __forceinline__ Lists collect2(const Staged& st, int from, int s,
+                                          int d) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  Lists l{0, 0};
+  for (int base = from; base < st.n; base += 128) {
+    int x[4];
+    unsigned ms[4], md[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = base + 32 * u + lane;
+      x[u] = k < st.n ? st.dsk[k] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ms[u] = __ballot_sync(kAll, x[u] == s);
+      md[u] = __ballot_sync(kAll, x[u] == d);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = base + 32 * u + lane;
+      if (x[u] == s) st.ls[l.cs + __popc(ms[u] & below)] = st.ld[k];
+      if (x[u] == d) st.lt[l.cd + __popc(md[u] & below)] = st.ld[k];
+      l.cs += __popc(ms[u]);
+      l.cd += __popc(md[u]);
+    }
+  }
+  __syncwarp();
+  return l;
+}
+
+// Every lane: disk d's fold before slot `from`: the prefix of its first
+// slot from `from` on, or its whole fold when none follows.
+__device__ __forceinline__ float prefix_at(const Staged& st, int from, int d,
+                                           float whole) {
+  const int lane = threadIdx.x & 31;
+  for (int base = from; base < st.n; base += 32) {
+    const int k = base + lane;
+    const unsigned md =
+        __ballot_sync(kAll, k < st.n && st.dsk[k] == d);
+    if (md) return st.pre[base + __ffs(md) - 1];
+  }
+  return whole;
+}
+
+// Every lane: the prefixes written back to the slots after `from` on disks
+// s and d, found by the same ballots: a slot's is the inclusive fold of
+// the list entry before its own (prefix_lists), or the list's start.
+__device__ __forceinline__ void scatter2(const Staged& st, int from, int s,
+                                         int d, float s0, float d0) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int ns = 0, nd = 0;
+  for (int base = from; base < st.n; base += 128) {
+    int x[4];
+    unsigned ms[4], md[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = base + 32 * u + lane;
+      x[u] = k < st.n ? st.dsk[k] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      ms[u] = __ballot_sync(kAll, x[u] == s);
+      md[u] = __ballot_sync(kAll, x[u] == d);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int k = base + 32 * u + lane;
+      if (x[u] == s) {
+        const int at = ns + __popc(ms[u] & below);
+        st.pre[k] = at > 0 ? st.ls[at - 1] : s0;
+      }
+      if (x[u] == d) {
+        const int at = nd + __popc(md[u] & below);
+        st.pre[k] = at > 0 ? st.lt[at - 1] : d0;
+      }
+      ns += __popc(ms[u]);
+      nd += __popc(md[u]);
+    }
+  }
+  __syncwarp();
+}
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// One lane, in place: each of the eight loads in x, y replaced by the fold
+// after it, from acc (the sequential fold with __fadd_rn): each add's
+// result is the element stored, no copy on the chain.
+__device__ __forceinline__ void prefix8(float4& x, float4& y, float& acc) {
+  acc = x.x = __fadd_rn(acc, x.x);
+  acc = x.y = __fadd_rn(acc, x.y);
+  acc = x.z = __fadd_rn(acc, x.z);
+  acc = x.w = __fadd_rn(acc, x.w);
+  acc = y.x = __fadd_rn(acc, y.x);
+  acc = y.y = __fadd_rn(acc, y.y);
+  acc = y.z = __fadd_rn(acc, y.z);
+  acc = y.w = __fadd_rn(acc, y.w);
+}
+
+// One lane: the list at v from position t on turned into its inclusive
+// folds in place from acc; returns the fold after its last load. The next
+// eight loads are read before the current eight are written.
+__device__ __forceinline__ float prefix_list(float* __restrict__ v, int t,
+                                             int cnt, float acc) {
+  const int blocks = t + ((cnt - t) & ~7);
+  if (t < blocks) {
+    float4 x = load4(v + t), y = load4(v + t + 4);
+    for (; t < blocks; t += 8) {
+      float4 nx, ny;
+      const bool more = t + 8 < blocks;
+      if (more) {
+        nx = load4(v + t + 8);
+        ny = load4(v + t + 12);
+      }
+      prefix8(x, y, acc);
+      store4(v + t, x);
+      store4(v + t + 4, y);
+      if (more) {
+        x = nx;
+        y = ny;
+      }
+    }
+  }
+  for (; t < cnt; ++t) acc = v[t] = __fadd_rn(acc, v[t]);
+  return acc;
+}
+
+// One lane: both lists turned into their inclusive folds in place, the
+// source's from *a, the destination's from *b, their common blocks
+// interleaved (two independent chains of adds); *a and *b become the two
+// disks' folds.
+__device__ __forceinline__ void prefix_lists(float* __restrict__ s, int cs,
+                                             float* __restrict__ d, int cd,
+                                             float* a, float* b) {
+  float fa = *a, fb = *b;
+  const int both = min(cs, cd) & ~7;
+  int t = 0;
+  if (both > 0) {
+    float4 sx = load4(s), sy = load4(s + 4), dx = load4(d), dy = load4(d + 4);
+    for (; t < both; t += 8) {
+      float4 nsx, nsy, ndx, ndy;
+      const bool more = t + 8 < both;
+      if (more) {
+        nsx = load4(s + t + 8);
+        nsy = load4(s + t + 12);
+        ndx = load4(d + t + 8);
+        ndy = load4(d + t + 12);
+      }
+      prefix8(sx, sy, fa);
+      prefix8(dx, dy, fb);
+      store4(s + t, sx);
+      store4(s + t + 4, sy);
+      store4(d + t, dx);
+      store4(d + t + 4, dy);
+      if (more) {
+        sx = nsx;
+        sy = nsy;
+        dx = ndx;
+        dy = ndy;
+      }
+    }
+  }
+  *a = prefix_list(s, t, cs, fa);
+  *b = prefix_list(d, t, cd, fb);
+}
+
+// Every lane, after slot j moved from disk s to disk d: the two disks
+// refolded from slot j on (a sequential fold keeps its bits up to the
+// first position that changes): the source from `from_src` (its prefix at
+// j) over its later slots, the destination from `at` (its prefix at j)
+// over j and its later slots. The warp gathers both disks' later loads
+// into two lists, one lane folds them in place, the two chains of adds
+// interleaved, and the warp writes every prefix back. Returns the two new
+// folds in *to_src and *to_dst. Running it twice gives the same state.
+__device__ __forceinline__ void refold(const Staged& st, int j, int s, int d,
+                                       float from_src, float at,
+                                       float* to_src, float* to_dst) {
+  const int lane = threadIdx.x & 31;
+  const Lists l = collect2(st, j + 1, s, d);
+  const float d0 = __fadd_rn(at, st.ld[j]);
+  float a = from_src, b = d0;
+  if (lane == 0) {
+    st.pre[j] = at;
+    prefix_lists(st.ls, l.cs, st.lt, l.cd, &a, &b);
+  }
+  __syncwarp();
+  scatter2(st, j + 1, s, d, from_src, d0);
+  *to_src = __shfl_sync(kAll, a, 0);
+  *to_dst = __shfl_sync(kAll, b, 0);
+}
+
+struct Block {  // a sentinel slot whose move is undone from `round` on
+  long long flat;
+  int round;
+};
+
+struct Outcome {
+  int nopick_round, nopick_kind, rounds;
+  float load;  // lane d: disk d's final load
+};
+
+// The broker's loop, every lane of the warp. Leaves the final disks in
+// st.dsk; returns the first round without a pick and its kind, the rounds
+// it ran and lane d's final load of disk d.
+__device__ Outcome run_broker(const Inputs& in, int b, const Staged& st,
+                              Block blk0, Block blk1) {
+  const int lane = threadIdx.x & 31;
+  DiskLane dl{0.0f, false, false, false};
+  if (lane < in.D) {
+    const long long at = static_cast<long long>(b) * in.D + lane;
+    dl.cap = in.cap[at];
+    const bool a = in.alive[at] != 0;
+    dl.present = dl.cap > 0.0f;
+    dl.alive = dl.present && a;
+    dl.dead = dl.present && !a;
+  }
+  Outcome o{kNever, 0, 0, fold_all(st)};
+  const bool blocks = blk0.flat >= 0 || blk1.flat >= 0;
+  Disks dk;
+  Pick pk;
+  float to_src, to_dst;
+  int r = 0;
+  for (; r < in.max_rounds; ++r) {
+    dk = pick_disks(in, dl, o.load);
+    pk = pick_slot(st, dk.src);
+    if (!pk.any || pk.j < 0) {
+      o.nopick_round = r;
+      o.nopick_kind = pk.any ? kNoPickPinned : kNoPickEmpty;
+      ++r;
+      break;
+    }
+    if (!dk.ok) {
+      ++r;
+      break;
+    }
+    const int j = pk.j;
+    if (blocks) {
+      const long long flat = flat_of(st, j);
+      if ((flat == blk0.flat && r >= blk0.round) ||
+          (flat == blk1.flat && r >= blk1.round)) {
+        ++r;  // undone every round from here on
+        break;
+      }
+    }
+    // The move, then the two disks that changed refolded from slot j on.
+    const float from_src = st.pre[j];
+    const float at = prefix_at(st, j + 1, dk.dst,
+                               __shfl_sync(kAll, o.load, dk.dst));
+    __syncwarp();
+    if (lane == 0) st.dsk[j] = static_cast<int8_t>(dk.dst);
+    __syncwarp();
+    refold(st, j, dk.src, dk.dst, from_src, at, &to_src, &to_dst);
+    if (lane == dk.src) o.load = to_src;
+    if (lane == dk.dst) o.load = to_dst;
+    __syncwarp();
+  }
+  o.rounds = r;
+  return o;
+}
+
+__device__ void write_back(const Inputs& in, int b, const Staged& st,
+                           float load, int* out_disk, float* out_load) {
+  const int lane = threadIdx.x & 31;
+  for (int t = lane; t < st.n; t += 32) {
+    const int d = st.dsk[t];
+    if (d >= 0) out_disk[flat_of(st, t)] = d;
+  }
+  if (lane < in.D) out_load[static_cast<long long>(b) * in.D + lane] = load;
+}
+
+__global__ void __launch_bounds__(32) balance_kernel(
+    Inputs in, Scratch sc, int cap, int* __restrict__ out_disk,
+    float* __restrict__ out_load) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  Staged st = staged_layout(smem, cap);
+  stage_broker(in, sc, b, st);
+  const Block none{-1, kNever};
+  const Outcome o = run_broker(in, b, st, none, none);
+  write_back(in, b, st, o.load, out_disk, out_load);
+  if (threadIdx.x == 0) {
+    sc.nopick_round[b] = o.nopick_round;
+    sc.nopick_kind[b] = o.nopick_kind;
+    sc.rounds[b] = o.rounds;
+  }
+}
+
+// Every lane: the first no-pick round, over brokers above `owner`, of a
+// kind whose sentinel slot is `flat`.
+__device__ int first_block_round(const Inputs& in, const Scratch& sc,
+                                 int owner, long long flat,
+                                 long long flat_pin, long long flat_empty) {
+  int m = kNever;
+  for (int b = owner + 1 + static_cast<int>(threadIdx.x & 31); b < in.B;
+       b += 32) {
+    const int k = sc.nopick_kind[b];
+    const long long f = k == kNoPickPinned ? flat_pin
+                        : k == kNoPickEmpty ? flat_empty : -1;
+    if (f == flat) m = min(m, sc.nopick_round[b]);
+  }
+  return __reduce_min_sync(kAll, m);
+}
+
+__global__ void __launch_bounds__(32) fixup_kernel(
+    Inputs in, Scratch sc, int cap, int* __restrict__ out_disk,
+    float* __restrict__ out_load) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long last = static_cast<long long>(in.P - 1) * in.S;
+  const long long flat_pin = last;
+  const long long flat_empty = last + 0x7fffffff % in.S;
+  int owner[2];
+  const long long flats[2] = {flat_pin, flat_empty};
+  for (int k = 0; k < 2; ++k) {
+    const long long f = flats[k];
+    const int a = in.assignment[f];
+    owner[k] = (a >= 0 && a < in.B && in.pmask[in.P - 1] && in.disk_in[f] >= 0)
+                   ? a : -1;
+  }
+  // Owners from the highest index down: a lower owner's block round reads
+  // the higher owner's corrected no-pick round.
+  int order[2] = {0, 1};
+  if (owner[1] > owner[0]) {
+    order[0] = 1;
+    order[1] = 0;
+  }
+  for (int q = 0; q < 2; ++q) {
+    const int o = owner[order[q]];
+    if (o < 0) continue;
+    if (q == 1 && o == owner[order[0]]) break;  // one owner of both slots
+    Block blk[2] = {{-1, kNever}, {-1, kNever}};
+    bool any = false;
+    for (int k = 0; k < 2; ++k) {
+      if (owner[k] != o || (k == 1 && flats[1] == flats[0])) continue;
+      const int r = first_block_round(in, sc, o, flats[k], flat_pin,
+                                      flat_empty);
+      if (r != kNever) {
+        blk[k] = Block{flats[k], r};
+        any = true;
+      }
+    }
+    if (!any) continue;
+    Staged st = staged_layout(smem, cap);
+    stage_broker(in, sc, o, st);
+    const Outcome oc = run_broker(in, o, st, blk[0], blk[1]);
+    write_back(in, o, st, oc.load, out_disk, out_load);
+    if (threadIdx.x == 0) {
+      sc.nopick_round[o] = oc.nopick_round;
+      sc.nopick_kind[o] = oc.nopick_kind;
+      sc.rounds[o] = oc.rounds;
+    }
+    __syncwarp();
+  }
 }
 
 }  // namespace
 
-// Int32 words of scratch for n slots and B brokers: counts, bases,
-// cursors [B] each, the largest count (4 words), the lists [n], and the
-// first no-pick round and kind and the rounds run [B] each.
+// Int32 words of the balancer's scratch for n slots and B brokers (see
+// Scratch): each broker's count first, its first no-pick round and kind
+// and the rounds it ran last.
 extern "C" long long cc_intra_broker_scratch_words(long long n, int B) {
-  return 6LL * B + 4 + n;
+  return scratch_words(n, B);
 }
 
 // Word offset of the largest per-broker count in the scratch.
-extern "C" long long cc_intra_broker_max_offset(int B) { return 3LL * B; }
+extern "C" long long cc_intra_broker_max_offset(int B) { return 2LL * B; }
 
-// Group the slots by broker: counts, bases, the largest count and the
-// (unordered) lists. The caller reads the largest count before balancing.
+// Group the slots by broker, stably: each broker's slots as one run in
+// flat order, its count and start, and the largest count, which the
+// caller reads before balancing. Five device ops.
 extern "C" int cc_intra_broker_group(const int* assignment,
-                                     const uint8_t* partition_mask, int P,
-                                     int S, int B, int* scratch,
-                                     void* stream_) {
+                                     const uint8_t* partition_mask,
+                                     const int* disk_in, int P, int S, int B,
+                                     int D, int* scratch, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const long long n = static_cast<long long>(P) * S;
-  if (n <= 0 || n >= (1LL << 31) || B < 1)
+  if (n <= 0 || n >= (1LL << 31) || B < 1 || B > (1 << 20) || D < 1 ||
+      D > kMaxDisks)
     return static_cast<int>(cudaErrorInvalidValue);
-  Scratch sc = scratch_of(scratch, n, B);
-  cudaError_t err = cudaMemsetAsync(sc.count, 0, sizeof(int) * B, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static bool sized = false;
+  if (!sized) {
+    cudaError_t e = cudaFuncSetAttribute(
+        load_scatter_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(unsigned long long)) * kTile);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(split_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(split_smem_bytes(12)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sized = true;
+  }
+  const LoadPlan pl = load_plan(n, B);
+  const Scratch sc = scratch_of(scratch, n, B);
   const int ni = static_cast<int>(n);
-  count_kernel<<<grid_of(n), 256, 0, stream>>>(assignment, partition_mask, ni,
-                                               S, B, sc.count);
-  scan_kernel<<<1, 1024, 0, stream>>>(B, sc.count, sc.base, sc.cursor,
-                                      sc.most);
-  scatter_kernel<<<grid_of(n), 256, 0, stream>>>(
-      assignment, partition_mask, ni, S, B, sc.cursor, sc.list);
+  cudaError_t err = cudaMemsetAsync(sc.most, 0, sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  load_count_kernel<<<pl.tiles, kLoadThreads, 0, stream>>>(
+      assignment, partition_mask, ni, S, B, pl.shift, pl.buckets, sc.table);
+  load_scan_kernel<<<(pl.buckets + 31) / 32, kLoadThreads, 0, stream>>>(
+      pl.tiles, pl.buckets, sc.table, sc.total);
+  load_scatter_kernel<true><<<pl.tiles, kLoadThreads,
+                              sizeof(unsigned long long) * kTile, stream>>>(
+      assignment, partition_mask, nullptr, disk_in, ni, S, B, D, pl.shift,
+      pl.buckets, pl.tiles, sc.table, sc.total, sc.entry);
+  split_kernel<<<pl.buckets, kLoadThreads, split_smem_bytes(pl.shift),
+                 stream>>>(B, pl.shift, pl.buckets, sc.total, sc.entry,
+                           sc.run, sc.count, sc.start, sc.most);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1026,34 +1358,32 @@ extern "C" int cc_intra_broker_balance(
     float* out_load, int* scratch, void* stream_) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_);
   const long long n = static_cast<long long>(P) * S;
-  if (n <= 0 || n >= (1LL << 31) || B < 1 || D < 1 || D > kMaxDisks ||
-      most < 0 || most > kMaxReplicas || max_rounds < 0)
+  if (n <= 0 || n >= (1LL << 31) || B < 1 || B > (1 << 20) || D < 1 ||
+      D > kMaxDisks || most < 0 || most > kMaxReplicas || max_rounds < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int cap2 = cc::next_pow2(most > 0 ? most : 1);
-  const size_t smem = smem_of(cap2);
+  const int slots = ((most > 0 ? most : 1) + 7) & ~7;
+  const size_t smem = slice_bytes(slots);
   static bool sized = false;
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
         balance_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_of(kMaxReplicas)));
+        static_cast<int>(slice_bytes(kMaxReplicas)));
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(fixup_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem_of(kMaxReplicas)));
+                               static_cast<int>(slice_bytes(kMaxReplicas)));
     if (e != cudaSuccess) return static_cast<int>(e);
     sized = true;
   }
   Inputs in{assignment, partition_mask, load, movable, disk_in, cap, alive,
             P, S, B, D, threshold, upper, band, max_rounds};
-  Scratch sc = scratch_of(scratch, n, B);
+  const Scratch sc = scratch_of(scratch, n, B);
   cudaError_t err = cudaMemcpyAsync(out_disk, disk_in, sizeof(int) * n,
                                     cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  balance_kernel<<<B, kThreads, smem, stream>>>(in, sc, cap2, out_disk,
-                                                out_load);
+  balance_kernel<<<B, 32, smem, stream>>>(in, sc, slots, out_disk, out_load);
   if (max_rounds > 0)
-    fixup_kernel<<<1, kThreads, smem, stream>>>(in, sc, cap2, out_disk,
-                                                   out_load);
+    fixup_kernel<<<1, 32, smem, stream>>>(in, sc, slots, out_disk, out_load);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1079,7 +1409,7 @@ extern "C" int cc_intra_broker_load(const int* assignment,
   static bool sized = false;
   if (!sized) {
     cudaError_t e = cudaFuncSetAttribute(
-        load_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        load_scatter_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(sizeof(unsigned long long)) * kTile);
     if (e == cudaSuccess)
       e = cudaFuncSetAttribute(load_fold_kernel,
@@ -1095,7 +1425,7 @@ extern "C" int cc_intra_broker_load(const int* assignment,
       assignment, partition_mask, ni, S, B, pl.shift, pl.buckets, sc.table);
   load_scan_kernel<<<(pl.buckets + 31) / 32, kLoadThreads, 0, stream>>>(
       pl.tiles, pl.buckets, sc.table, sc.total);
-  load_scatter_kernel<<<pl.tiles, kLoadThreads,
+  load_scatter_kernel<false><<<pl.tiles, kLoadThreads,
                         sizeof(unsigned long long) * kTile, stream>>>(
       assignment, partition_mask, load, disk_in, ni, S, B, D, pl.shift,
       pl.buckets, pl.tiles, sc.table, sc.total, sc.entry);

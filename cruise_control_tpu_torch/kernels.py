@@ -133,7 +133,7 @@ _SIGNATURES = {
         "cc_intra_broker_scratch_words": ([ctypes.c_longlong, _I],
                                           ctypes.c_longlong),
         "cc_intra_broker_max_offset": ([_I], ctypes.c_longlong),
-        "cc_intra_broker_group": [_VP, _VP] + [_I] * 3 + [_VP, _VP],
+        "cc_intra_broker_group": [_VP] * 3 + [_I] * 4 + [_VP, _VP],
         "cc_intra_broker_balance": [_VP] * 7 + [_I] * 5
         + [ctypes.c_float] * 2 + [_I] * 2 + [_VP] * 4,
         "cc_intra_broker_load_scratch_words": ([ctypes.c_longlong, _I],
@@ -219,7 +219,7 @@ LIMITS = {
                     "recheck, the goal table's limits (score_grid's)",
     "apply_deltas": "m <= 2048 rows (2m events in one block's radix sort) "
                     "and B < 2**19 brokers",
-    "intra_broker": "<= 8192 replicas on one broker (one CTA's shared "
+    "intra_broker": "<= 8192 replicas on one broker (one warp's shared "
                     "memory), D <= 32 disks a broker, B <= 2**20 brokers and "
                     "0 < P*S < 2**31",
     "intra_broker_load": "D <= 32 disks a broker, B <= 2**20 brokers and "

@@ -9,7 +9,8 @@ broker's log dirs to respect per-disk capacity and balance usage).
 broker moves its heaviest movable replica off its most-pressured disk onto
 its least-utilized alive disk, until no broker moves or ``max_rounds``.
 On a CUDA tensor it launches K5 (``csrc/intra_broker.cu``), which runs
-each broker's loop to its own fixed point in one CTA; on a CPU tensor it
+each broker's loop to its own fixed point in one warp, refolding only the
+two disks a move changes from the moved slot on; on a CPU tensor it
 runs the plain twin, a per-round loop over all brokers like the
 reference's. ``disk_load`` on a CUDA tensor runs K5's load mode, a stable
 placement of the slots by broker and a fold per (broker, disk), with no
@@ -50,9 +51,10 @@ from .tensors import (
 )
 
 INT32_MAX = 2 ** 31 - 1
-# K5's balancer stages one broker's replicas in one CTA's shared memory and
-# keeps a broker's per-disk state in registers of one warp; its load mode
-# takes any number of replicas on one broker (csrc/intra_broker.cu).
+# K5's balancer stages one broker's replicas in one warp's shared memory and
+# keeps a broker's per-disk loads in that warp's registers, a lane a disk;
+# its load mode takes any number of replicas on one broker
+# (csrc/intra_broker.cu).
 INTRA_BROKER_MAX_REPLICAS = 8192
 INTRA_BROKER_MAX_DISKS = 32
 INTRA_BROKER_MAX_BROKERS = 2 ** 20
@@ -271,10 +273,11 @@ def _k5_call(state: ClusterTensors, disks: DiskTensors,
                           dtype=torch.int32, device=dev)
     stream = kernels.stream_ptr(dev)
     code = lib.cc_intra_broker_group(ins[0].data_ptr(), ins[1].data_ptr(),
-                                     p, s, b, scratch.data_ptr(), stream)
+                                     ins[4].data_ptr(), p, s, b, d,
+                                     scratch.data_ptr(), stream)
     kernels.check(code, "intra_broker group")
-    # The largest replica count of one broker sizes the balance kernel's
-    # shared memory: one read of it on the host.
+    # The largest replica count of one broker sizes each warp's shared
+    # memory in the balance kernel: one read of it on the host.
     most = int(scratch[lib.cc_intra_broker_max_offset(b)].item())
     LAST_CALL.update(max_replicas_per_broker=most)
     if most > INTRA_BROKER_MAX_REPLICAS:

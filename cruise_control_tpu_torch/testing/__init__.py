@@ -1107,3 +1107,118 @@ def kd2_checks(n: int, r: int, table: int, count: int = 12, seed: int = 0):
             limit[-1] = np.inf
         out.append((limit, base, j % r, own, floor, gate))
     return out
+
+
+# KD4's cases (``kd4_case``).
+KD4_CASES = ("sorted", "g1", "sentinel", "short_runs", "unsorted")
+
+
+def kd4_case(name: str, n: int, g: int, b: int, seed: int = 0):
+    """(group [n] int32, rank [n] f32, deficit [G, B] f32, headroom
+    [G, B] f32, eligible [B] bool) of one KD4 case, from numpy alone, as
+    ``analyzer/direct.py`` builds them: movers sorted by group, each
+    group's ranks rotated by the golden-ratio offset and wrapped at its
+    total (two increasing runs a group; ranks at or above the total stay,
+    and are not placed: each group's total holds about 80 % of its
+    movers); a third of the profiles' cells zero-width. The
+    cases: groups drawn at random and sorted (groups split across the
+    kernel's CTA ranges);
+    one group; a third of the movers in a clamped sentinel tail of the
+    last group at rank 0; runs of about three movers (``g`` ignored:
+    n // 3 groups); the sorted case shuffled."""
+    rng = np.random.default_rng(seed + n + 31 * g + b)
+    if name == "g1":
+        g = 1
+    elif name == "short_runs":
+        g = max(1, n // 3)
+    movers = n - n // 3 if name == "sentinel" else n
+    # Cells sized so each group's total holds ~80 % of its movers.
+    lam = 0.8 * movers / g / (b * 2 * 0.7 * 0.95)
+    deficit = rng.poisson(lam, (g, b)).astype(np.float32)
+    headroom = rng.poisson(lam, (g, b)).astype(np.float32)
+    deficit[rng.random((g, b)) < 0.3] = 0.0
+    headroom[rng.random((g, b)) < 0.3] = 0.0
+    eligible = rng.random(b) > 0.05
+    group = np.sort(rng.integers(0, g, movers)).astype(np.int32)
+    starts = np.searchsorted(group, group, side="left")
+    rank = (np.arange(movers) - starts).astype(np.float32)
+    cum_d = np.cumsum(np.where(eligible, deficit, 0.0), axis=1,
+                      dtype=np.float32)
+    cum_h = np.cumsum(np.where(eligible, headroom, 0.0), axis=1,
+                      dtype=np.float32)
+    t_g = (cum_d[:, -1] + cum_h[:, -1])[group]
+    rot = np.float32(1 + seed % 7) * np.float32(0.6180339887)
+    offs = np.floor(t_g * rot)
+    rank = np.where(rank < t_g, np.fmod(rank + offs, np.maximum(t_g, 1.0)),
+                    rank).astype(np.float32)
+    if name == "sentinel":
+        group = np.concatenate([group, np.full(n - movers, g - 1, np.int32)])
+        rank = np.concatenate([rank, np.zeros(n - movers, np.float32)])
+    if name == "unsorted":
+        perm = rng.permutation(n)
+        group, rank = group[perm], rank[perm]
+    return group, rank, deficit, headroom, eligible
+
+
+# K5's edge cases (``k5_edge_case``).
+K5_EDGE_CASES = ("broker_at_limit", "d32", "all_64_rounds", "fixup_64")
+
+
+def k5_edge_case(name: str, seed: int = 0):
+    """``(cluster arrays, disk arrays, movable [P] bool, band)`` of one of
+    K5's edge cases, RF 1, from numpy alone: a broker at exactly K5's
+    8,192 replicas (D = 4, everything on two dirs, the band); four brokers
+    on 32 dirs (the band); four brokers, each draining a dead dir of more
+    than 64 movable replicas, so every one runs all 64 rounds (the
+    capacity goal); and the same with the last partition's replica, the
+    8th heaviest on broker 0's dead dir, blocked from round 5 by broker 3,
+    which has no replica on its source dir from then on (its dir 0 absent,
+    its dead dir drained in five rounds), so the sentinel fix-up reruns
+    broker 0."""
+    rng = np.random.default_rng(seed)
+    sizes = {"broker_at_limit": (8192, 300, 200),
+             "d32": (900, 700, 500, 300)}.get(name, (260, 150, 120, 90))
+    d = {"broker_at_limit": 4, "d32": 32}.get(name, 4)
+    b = len(sizes)
+    broker = np.repeat(np.arange(b), sizes)
+    load = (rng.exponential(50.0, broker.shape[0])
+            * 10.0 ** rng.integers(-1, 2, broker.shape[0]))
+    disk = rng.integers(0, d, broker.shape[0])
+    cap = np.zeros((b, d), np.float32)
+    alive = np.ones((b, d), bool)
+    movable = rng.random(broker.shape[0]) >= 0.05
+    band = (0.9, 1.1)
+    if name == "broker_at_limit":
+        disk = np.where(rng.random(broker.shape[0]) < 0.8, 0, 1)
+    if name in ("all_64_rounds", "fixup_64"):
+        band = None
+        alive[:, 3] = False
+        dead = np.zeros(broker.shape[0], bool)
+        for k in range(b):
+            mine = np.flatnonzero(broker == k)
+            dead[mine[:100 if k < 3 or name == "all_64_rounds" else 5]] = True
+        disk = np.where(dead, 3, rng.integers(0, 3, broker.shape[0]))
+        movable |= dead
+    if name == "fixup_64":
+        # Broker 3: five replicas on its dead dir 1, the rest on dirs 2 and
+        # 3, dir 0 absent, room everywhere.
+        three = broker == 3
+        alive[3, 1], alive[3, 3] = False, True
+        disk = np.where(three, np.where(dead, 1, 2 + rng.integers(
+            0, 2, broker.shape[0])), disk)
+        # The last partition: broker 0's 8th heaviest on its dead dir.
+        zero = np.flatnonzero((broker == 0) & (disk == 3))
+        pick = zero[np.argsort(-load[zero], kind="stable")[7]]
+        order = np.r_[np.delete(np.arange(broker.shape[0]), pick), pick]
+        broker, load, disk, movable = (broker[order], load[order],
+                                       disk[order], movable[order])
+    total = np.zeros(b)
+    np.add.at(total, broker, load)
+    cap[:] = (2.0 * total / d)[:, None] * rng.uniform(0.8, 1.6, (b, d))
+    if name == "fixup_64":
+        cap[3] = 10.0 * total[3]
+        cap[3, 0] = 0.0
+    cl = disk_cluster_arrays(broker[:, None], load, b)
+    dk = {"disk_assignment": disk[:, None].astype(np.int32),
+          "disk_capacity": cap.astype(np.float32), "disk_alive": alive}
+    return cl, dk, movable, band

@@ -3,7 +3,8 @@ mode and K8 on one GPU, for one or more checkouts of the port, in turns.
 
     python3 -m cruise_control_tpu_torch.testing.kernel_times ROOT \
         [ROOT ...] [--turns N] [--k7-only | --k3-only | --k3r-only |
-        --k2l-only | --k8-only | --kd1-only | --kd2-only | --kd3-only]
+        --k2l-only | --k8-only | --kd1-only | --kd2-only | --kd3-only |
+        --k5-only | --kd4-only]
 
 Each ROOT is a directory that holds a ``cruise_control_tpu_torch``
 package: this checkout, or an unpacked ``git archive`` of another commit.
@@ -75,7 +76,19 @@ the port never calls. ``--kd3-only`` times KD3 (``direct_plan``) alone,
 the same way (``kd3_``, ``kd3_cold_``), on the plans that sweep makes
 (the topic plane: 100 x 1,000 and 700 x 7,000) and on one synthetic row
 of a cluster-wide count goal (G = 1; dense Poisson-30 counts, seed 0) at
-1,000 and 7,000 brokers; KD3 has no PyTorch counterpart. Prints one JSON
+1,000 and 7,000 brokers; KD3 has no PyTorch counterpart. ``--k5-only``
+times K5's balancer (``disks.balance_intra_broker``) alone, the same way
+(``k5_``, ``k5_cold_``; ``k5_ms`` sums K5's own device ops, its kernels,
+memset and copy, apart from the wrapper's PyTorch ops), on the JBOD pair
+at 7k/1M (the ``7k_1m_rebalance_disk`` entry's disks with the usage
+goal's band, the ``7k_1m_remove_disks`` entry's with none, two log dirs a
+broker) and on the 1k/100k fixture's seeded random placements at D = 4
+(band) and D = 8 (capacity) with 10 % of partitions pinned, each line
+with the rounds of the broker that ran most and how many ran more than 8.
+``--kd4-only`` times KD4 (``fill.direct_fill_dests``) alone, the same way
+(``kd4_``, ``kd4_cold_``), on the first call that sweep makes at 1k/100k
+and 7k/1M, beside one ``torch.searchsorted`` over the rows laid end to
+end (``kd4_library_``), which the port never calls. Prints one JSON
 line a root and turn (the grid's rows, the ms of each kernel by name,
 their sum). The card's name and power limit come first. Needs a CUDA
 device; imports nothing of JAX.
@@ -323,6 +336,95 @@ if MODE == "kd3":
                                            **device_ops(fn))
     print(json.dumps(out))
     sys.exit(0)
+if MODE == "k5":
+    from cruise_control_tpu_torch.analyzer.goals.intra_broker import (
+        IntraBrokerDiskUsageDistributionGoal)
+    from cruise_control_tpu_torch.testing import random_placement_disks
+    flush64 = torch.zeros(32 << 20, dtype=torch.float64, device=dev)
+    band = IntraBrokerDiskUsageDistributionGoal()._band()
+    # K5's own device ops (its kernels, the memset of its counts and the
+    # copy of the input disks), summed apart from the wrapper's PyTorch ops.
+    K5_OPS = ("count_kernel", "scan_kernel", "scatter_kernel",
+              "split_kernel", "balance_kernel", "fixup_kernel", "Memset (",
+              "Memcpy DtoD")
+    jb_state, _m = build_fixture(refs["7k_1m_rebalance_disk"], dev)
+    jb = cluster_to_numpy(jb_state)
+    cases = [(entry.replace("7k_1m_", "7k_1m_d2_"), jb_state,
+              disks_mod.disks_from_numpy(entry_disks(refs[entry], jb), dev),
+              b_, None)
+             for entry, b_ in (("7k_1m_rebalance_disk", band),
+                               ("7k_1m_remove_disks", None))]
+    rp_state, _m = build_fixture(refs["1k_100k"], dev)
+    rp = cluster_to_numpy(rp_state)
+    for num_disks, b_, seed in ((4, band, 4), (8, None, 8)):
+        dk, mv = random_placement_disks(rp["assignment"],
+                                        rp["partition_mask"],
+                                        rp["capacity"][:, 3], num_disks, seed)
+        cases.append((f"1k_100k_d{num_disks}_random_placement", rp_state,
+                      disks_mod.disks_from_numpy(dk, dev), b_,
+                      torch.as_tensor(mv, device=dev)))
+    for name, st, dk, b_, mv in cases:
+        def k5(st=st, dk=dk, b_=b_, mv=mv):
+            return disks_mod.balance_intra_broker(st, dk, 0.8, b_, 64, mv)
+
+        k5()
+        rounds = disks_mod.LAST_CALL["rounds"].cpu()
+        info = dict(rounds_max=int(rounds.max()),
+                    brokers_above_8_rounds=int((rounds > 8).sum()),
+                    largest_broker=disks_mod.LAST_CALL[
+                        "max_replicas_per_broker"])
+        for tag, fn in (("", k5), ("_cold", lambda f=k5: (
+                flush64.add_(1.0), f()))):
+            got = device_ops(fn)
+            got["k5_ms"] = sum(v for k, v in got["kernels"].items()
+                               if any(n in k for n in K5_OPS))
+            out[f"k5{tag}_{name}"] = dict(**info, **got)
+    print(json.dumps(out))
+    sys.exit(0)
+if MODE == "kd4":
+    from cruise_control_tpu_torch.analyzer import direct as direct_f
+    from cruise_control_tpu_torch.analyzer import fill as fill_f
+    from cruise_control_tpu_torch.analyzer.search import ExclusionMasks
+    flush64 = torch.zeros(32 << 20, dtype=torch.float64, device=dev)
+    for entry in ("1k_100k", "7k_1m"):
+        state, meta = build_fixture(refs[entry], dev)
+        goals = k6_goals("default", state.num_brokers)
+        index = [g.name for g in goals].index("TopicReplicaDistributionGoal")
+        calls = []
+        orig_fill = direct_f.direct_fill_dests
+
+        def rec_fill(*a):
+            if not calls:
+                calls.append([x.clone() for x in a])
+            return orig_fill(*a)
+
+        direct_f.direct_fill_dests = rec_fill
+        try:
+            direct_f._direct_sweep(state, goals, index, BalancingConstraint(),
+                                   meta.num_topics, ExclusionMasks())
+        finally:
+            direct_f.direct_fill_dests = orig_fill
+        torch.cuda.synchronize()
+        group, rank, cum_d, cum_h = calls[0]
+        del state
+
+        def fill(a=calls[0]):
+            return fill_f.direct_fill_dests(*a)
+
+        info = dict(n=int(group.numel()), shape=list(cum_d.shape))
+        for tag, fn in (("", fill), ("_cold", lambda f=fill: (
+                flush64.add_(1.0), f()))):
+            out[f"kd4{tag}_{entry}"] = dict(**info, **device_ops(fn))
+        # The yardstick: one torch.searchsorted over the rows laid end to
+        # end (each offset past the last), never called by the port.
+        span = float(cum_d.max()) + 2.0
+        rows = torch.arange(cum_d.shape[0], device=dev)
+        flat = (cum_d + rows[:, None] * span).reshape(-1)
+        q = rank + 0.5 + group * span
+        out[f"kd4_library_{entry}"] = dict(**info, **device_ops(
+            lambda: torch.searchsorted(flat, q, right=True)))
+    print(json.dumps(out))
+    sys.exit(0)
 if MODE in ("k2l", "k8"):
     from cruise_control_tpu_torch.analyzer import agg as agg_s
     from cruise_control_tpu_torch.analyzer import candidates as cand_s
@@ -547,6 +649,8 @@ def main() -> int:
     only.add_argument("--kd2-only", action="store_true")
     only.add_argument("--kd3-only", action="store_true")
     only.add_argument("--k3r-only", action="store_true")
+    only.add_argument("--k5-only", action="store_true")
+    only.add_argument("--kd4-only", action="store_true")
     args = ap.parse_args()
     from . import K7_FAMILY_GOALS, k7_family_goal_args
     families = {f: k7_family_goal_args(f, 7000) for f in K7_FAMILY_GOALS}
@@ -555,6 +659,7 @@ def main() -> int:
                   else "k2l" if args.k2l_only else "k8" if args.k8_only
                   else "kd1" if args.kd1_only else "kd2" if args.kd2_only
                   else "kd3" if args.kd3_only else "k3r" if args.k3r_only
+                  else "k5" if args.k5_only else "kd4" if args.kd4_only
                   else "all"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

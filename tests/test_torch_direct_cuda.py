@@ -22,8 +22,8 @@ from cruise_control_tpu_torch.analyzer.optimizer import GoalOptimizer
 from cruise_control_tpu_torch.config import CruiseControlConfig
 from cruise_control_tpu_torch.model.fixtures import Dist, random_cluster
 from cruise_control_tpu_torch.testing import (
-    KD1_CASES, KD1_SIZES, KD2_CASES, KD2_SIZES, KD3_CASES, kd1_case,
-    kd2_case, kd2_checks, kd3_case,
+    KD1_CASES, KD1_SIZES, KD2_CASES, KD2_SIZES, KD3_CASES, KD4_CASES,
+    kd1_case, kd2_case, kd2_checks, kd3_case, kd4_case,
 )
 
 pytestmark = pytest.mark.cuda
@@ -151,6 +151,33 @@ def test_direct_fill_matches_twin(card, name):
     kernels.LAUNCHES.clear()
     got = fill.direct_fill_dests(grp.to(card), rank.to(card),
                                  cum_d.to(card), cum_h.to(card))
+    assert kernels.LAUNCHES["direct_fill"] == 1
+    for w, gt in zip(want, got):
+        np.testing.assert_array_equal(gt.cpu().numpy(), w.numpy())
+
+
+@pytest.mark.parametrize("name", KD4_CASES)
+@pytest.mark.parametrize("n,g,b", [(3000, 4, 257), (600_001, 2100, 1000),
+                                   (1_100_000, 300, 7000),
+                                   (20_000, 3, 20_000)])
+def test_direct_fill_matches_twin_on_range_cases(card, name, n, g, b):
+    """KD4 on `testing.KD4_CASES` (tests/test_torch_direct_fill.py):
+    groups split across the CTAs' ranges, wrapped ranks, zero-width
+    cells, one group, the clamped sentinel tail, runs of a few movers
+    (6,666 groups) and an unsorted group, from a few movers a CTA to
+    thousands, and rows of 20,000 brokers."""
+    if name == "short_runs":        # n // 3 groups
+        n, b = 20_000, 400 if b in (1000, 7000) else min(b, 257)
+    group, rank, deficit, headroom, eligible = kd4_case(name, n, g, b)
+    elig = torch.as_tensor(eligible)[None, :]
+    cum_d = torch.cumsum(torch.where(elig, torch.as_tensor(deficit), 0.0), 1)
+    cum_h = torch.cumsum(torch.where(elig, torch.as_tensor(headroom), 0.0),
+                         1)
+    grp, rk = torch.as_tensor(group), torch.as_tensor(rank)
+    want = fill.direct_fill_dests(grp, rk, cum_d, cum_h)
+    kernels.LAUNCHES.clear()
+    got = fill.direct_fill_dests(grp.to(card), rk.to(card), cum_d.to(card),
+                                 cum_h.to(card))
     assert kernels.LAUNCHES["direct_fill"] == 1
     for w, gt in zip(want, got):
         np.testing.assert_array_equal(gt.cpu().numpy(), w.numpy())

@@ -425,6 +425,27 @@ def test_intra_broker_on_jbod_and_random_placements_at_1k(card, num_disks,
     _k5_case(card, cl, dk, movable, band)
 
 
+@pytest.mark.parametrize("name", ["broker_at_limit", "d32", "all_64_rounds",
+                                  "fixup_64"])
+def test_intra_broker_on_edge_cases(card, name):
+    """A broker at exactly 8,192 replicas, 32 dirs, brokers that run all
+    64 rounds and an active fix-up (``testing.k5_edge_case``), bitwise
+    against the twin; the rounds each broker ran as the model has them
+    (tests/test_torch_k5_model.py)."""
+    from cruise_control_tpu_torch.model import disks as td
+    from cruise_control_tpu_torch.testing import k5_edge_case
+    cl, dk, movable, band = k5_edge_case(name)
+    _k5_case(card, cl, dk, movable, band)
+    rounds = td.LAST_CALL["rounds"].cpu().tolist()
+    if name == "broker_at_limit":
+        assert td.LAST_CALL["max_replicas_per_broker"] == \
+            td.INTRA_BROKER_MAX_REPLICAS
+    if name == "all_64_rounds":
+        assert rounds == [64] * 4
+    if name == "fixup_64":
+        assert rounds == [8, 64, 64, 6]
+
+
 def test_intra_broker_launches_are_counted_apart(card):
     from cruise_control_tpu_torch.model import disks as td
     from cruise_control_tpu_torch.testing import sentinel_case
